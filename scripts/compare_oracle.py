@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Full-pipeline parity harness (reference scripts/compare_cpp.py +
-docs/COMPARE.md protocol): runs the two-pass TPU pipeline and the C++ oracle
+docs/COMPARE.md protocol): runs the two-pass JAX pipeline and the C++ oracle
 on the same clip and prints a markdown table of per-field relative errors
 and PSNR deltas.
 
@@ -55,13 +55,13 @@ def main():
         ("PSNR oracle (basic/deno)",
          f"{compute_psnr(o_basic, clean):.4f}",
          f"{compute_psnr(o_deno, clean):.4f}"),
-        ("PSNR tpu (basic/deno)",
+        ("PSNR jax (basic/deno)",
          f"{compute_psnr(basic, clean):.4f}",
          f"{compute_psnr(deno, clean):.4f}"),
         ("PSNR abs. delta (basic/deno)",
          f"{abs(compute_psnr(basic, clean) - compute_psnr(o_basic, clean)):.4f}",
          f"{abs(compute_psnr(deno, clean) - compute_psnr(o_deno, clean)):.4f}"),
-        ("tpu wall time", f"{dtime:.2f}s",
+        ("jax wall time", f"{dtime:.2f}s",
          f"{clean.shape[0] / dtime:.2f} fps"),
     ]
     print("\n| metric | value | value2 |")

@@ -1,4 +1,4 @@
-"""End-to-end quality pins on the SECOND synthetic generator (judge r3 #7).
+"""End-to-end quality pins on the SECOND synthetic generator.
 
 Every prior quality number came from one moving-texture generator
 (testing/data.synthetic_video); the reference's protocol used real DAVIS

@@ -2,7 +2,7 @@
 
 The video volume is SPLIT over the mesh's H axis with `ppermute` halo
 exchange; these tests pin tiled == untiled on the virtual 8-device CPU
-mesh, for clips that exercise >= 2 halo seams (VERDICT round-1 item 6).
+mesh, for clips that exercise >= 2 halo seams.
 """
 
 import jax
@@ -107,7 +107,7 @@ def test_halo_with_flow_matches_single_device(clip):
 
 
 def test_halo_1080_row_autopad():
-    """The BASELINE v5e-8 shape: H=1080 does not split into 8 valid strips
+    """1080p on 8 devices: H=1080 does not split into 8 valid strips
     (1080/8 = 135, odd), so proc_nl_halo edge-pads to 1088 (8 strips of
     136), processes, and crops back (halo.py:384-404).
 
@@ -193,9 +193,9 @@ def test_fold_in_shardmap():
 @pytest.mark.parametrize("geom", ["small", "coarse2", "stream"])
 def test_strip_single_matches_mesh(clip, geom):
     """The shard_map-free single-strip runner (proc_nl_strip_single +
-    combine_strips) reproduces the mesh program's output — the per-shard
-    wall measured on one real chip (scripts/bench_480p_sp.py) is therefore
-    the wall of the code the mesh actually runs (round-4 judge item #1b).
+    combine_strips) reproduces the mesh program's output — a per-shard
+    wall timed on one card with it is therefore the wall of the code the
+    mesh actually runs.
 
     geom='coarse2' uses (3, 88, 86): strips of 24 rows build TWO needle
     coarse levels with an ODD pooled width (43) — the shape class where a

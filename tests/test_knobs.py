@@ -1,5 +1,5 @@
 """The formerly-declarative config knobs are real: tau, beta, only_frame,
-couple_channels (round-1 verdict: zero silently-ignored config fields).
+couple_channels (no silently-ignored config fields).
 
 Reference anchors: tau params.py:40 (C++ similarity threshold), beta
 bayes_est_old.py:53, onlyFrame comp_agg.py:234, coupleChannels
@@ -120,7 +120,7 @@ def test_agg_weight_exp():
 
 
 def test_search_bf16_planes():
-    """search_bf16 (the round-5 default) stores the dense candidate planes
+    """search_bf16 (the default) stores the dense candidate planes
     in bf16 between the search kernel and the row take: distances round
     ~0.4% relative, so near-tie candidates can swap, but end-to-end quality
     must hold (the 480p bench A/B measured -0.0007/+0.0001 dB; gate here at
@@ -129,7 +129,7 @@ def test_search_bf16_planes():
     cast is ever dropped, both runs become identical and this fails)."""
     clean, noisy, zf = _clip()
     cfg = default_config(20.0, preset="iphone").stage(0)
-    assert cfg.search_bf16                       # round-5 default is ON
+    assert cfg.search_bf16                       # the default is ON
     out_b = np.asarray(proc_nl(noisy, None, None, zf, zf, cfg))
     out_f = np.asarray(proc_nl(noisy, None, None, zf, zf,
                                cfg.replace(search_bf16=False)))

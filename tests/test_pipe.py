@@ -35,8 +35,8 @@ def test_pipelined_equals_streaming():
 
 def test_pipelined_halo_composition():
     """PP x SP: each pass halo-SP sharded over its own 2-device mesh
-    (4 devices total = 2 pipeline stages x 2 H-strips) — the BASELINE
-    v5e-8 shape at test scale.  Must match the plain pipelined run up to
+    (4 devices total = 2 pipeline stages x 2 H-strips) — the 8-device
+    scale-out shape at test scale.  Must match the plain pipelined run up to
     halo-SP fp reassociation (the test_halo closeness bar)."""
     import jax
 
@@ -83,8 +83,8 @@ def test_pipelined_single_chunk():
 
 @pytest.mark.slow
 def test_pipelined_halo_production_shape():
-    """PP x halo-SP at a PRODUCTION-LIKE shape (round-4 judge item #6): the
-    declared v5e-8 config had only ever compiled at 56-px toys, and
+    """PP x halo-SP at a PRODUCTION-LIKE shape: the 8-device scale-out
+    config had only ever compiled at 56-px toys, and
     shard_map has miscompiled once in this repo (ops/agg.py fold note).
     (T=6, C=3, H=480, W=256), full iphone preset window/K, production
     stride 6, 2 pipeline stages x 4 H-strips on the 8-device CPU mesh —

@@ -83,7 +83,7 @@ import pytest
 
 @pytest.mark.parametrize("sigma", [10.0, 40.0])
 def test_poly_two_pass_psnr_delta_sigma_sweep(sigma):
-    """sigma-sweep pins (round-2 judge item #7): tau = thresh*sigma^2+sigmab^2
+    """sigma-sweep pins: tau = thresh*sigma^2+sigmab^2
     sits in a very different part of the spectrum at sigma=10 vs 40, so the
     poly schedule's <=0.1 dB exact-eigh budget is pinned at both extremes,
     not just the sigma=20 midpoint."""

@@ -1,13 +1,10 @@
-"""Strided-query dense search: matches the all-rows dense path.
+"""Strided-query dense search: matches the all-pixels dense path.
 
 The coverage lattice queries only ~1/step_s of rows AND columns, so the
-strided path (ops/search_dense._level_dense_smat) computes level-0
-candidate distances ONLY at lattice positions — round-2 judge item #1.
-Off TPU the path literally row/column-selects the dense planes, so values
-and indices are pinned BIT-equal.  The Pallas smat kernel (interpret-mode
-test below) evaluates the equivalent squared-difference form with bf16
-selection matmuls on the MXU: values agree to bf16 rounding and any top-K
-index disagreements must be value-ties at that tolerance.
+strided path (ops/search_dense with ``qrow0``) keeps candidate distances
+ONLY at lattice positions (ops/lattice_layout).  The selection happens
+inside the per-offset scan on the same values, so values and indices are
+pinned BIT-equal to the all-pixels path.
 """
 
 import numpy as np
@@ -217,162 +214,9 @@ def test_strided_nonzero_phase_origin():
     np.testing.assert_array_equal(np.asarray(si), np.asarray(fi))
 
 
-def test_smat_kernel_mm_f32_interpret(monkeypatch):
-    """VNLB_SMAT_MM_F32=1 (exact f32 selection matmuls) stays lowerable
-    and matches the default bf16-matmul mode to ~bf16 rounding."""
-    import vnlb_tpu.ops.pallas_smat as sm
-
-    rng = np.random.default_rng(5)
-    ps, w_s, step = 7, 15, 6
-    video = rng.uniform(0, 255, (2, 1, 40, 44)).astype(np.float32)
-    vq = jnp.asarray(video)
-    qrow0 = (0, 1)
-    args = (vq, vq, qrow0, ps, w_s, step)
-    monkeypatch.setenv("VNLB_SMAT_MM_F32", "0")
-    a = np.asarray(sm.smat_distances_dt(*args, interpret=True))
-    monkeypatch.setenv("VNLB_SMAT_MM_F32", "1")
-    b = np.asarray(sm.smat_distances_dt(*args, interpret=True))
-    # compare only at valid lattice slots (other slots hold garbage):
-    # per-frame phase rows + the always-on first/last rows, and each row's
-    # column lattice (phase_w = (phase_h + k) % step, mask.py semantics)
-    hp, wp = 40 - ps + 1, 44 - ps + 1
-    _, _, rowpad, _, ncpad = sm.smat_layout(hp, wp, step)
-    site_list = []
-    for f, ph in enumerate(qrow0):
-        for y in sorted({0, hp - 1} | set(range(ph, hp, step))):
-            if y == hp - 1:
-                c = 0
-            elif (y % step) == ph:
-                c = (ph + (y - ph) // step) % step
-            else:
-                c = ph                           # first_h spare row
-            for x in sorted({0, wp - 1} | set(range(c, wp, step))):
-                site_list.append((f, y, x))
-    sites = jnp.asarray(site_list, jnp.int32)
-    rows = np.asarray(sm.site_rows_smat(sites, qrow0, step, hp, wp,
-                                        ncpad, rowpad))
-    af = a.transpose(0, 2, 3, 1).reshape(-1, w_s * w_s)[rows]
-    bf = b.transpose(0, 2, 3, 1).reshape(-1, w_s * w_s)[rows]
-    scale = np.abs(bf).max()
-    assert np.isfinite(bf).all()
-    assert np.abs(af - bf).max() / scale < 0.01
-
-
-def test_tile_smat_kernel_matches_selection_interpret():
-    """The TILE-variant Pallas kernel (traced Sy, interpret mode) vs the
-    traced-selection XLA fallback at every lattice slot of an offset
-    strip: values within the bf16 selection-matmul tolerance (~0.4%).
-
-    Compared only at IN-BOUNDS candidates: at partially-OOB candidate
-    patches the kernel's zero-padded squared-difference form and the dense
-    path's zero-padded q2+b2-2*cross form legitimately differ, and the
-    production path (exec_search_dense_tile) masks those +inf before the
-    top-K — same protocol as the end-to-end tile tests above."""
-    from vnlb_tpu.ops import pallas_smat as sm
-    from vnlb_tpu.ops.search_dense import _level_dense
-
-    rng = np.random.default_rng(21)
-    t, h, w = 3, 64, 44
-    video = rng.uniform(0, 255, (t, 3, h, w)).astype(np.float32)
-    cfg = default_config(20.0, preset="iphone").stage(0).replace(
-        nwt_b=1, nwt_f=1, border_mode="mask")
-    ps, w_s, step = cfg.ps, cfg.w_s, cfg.step_s
-    qrow0 = _phases(video.shape, cfg)
-    hp_g = h - ps + 1
-
-    halo = (w_s - 1) // 2 + ps - 1
-    hs, r0 = 16, 16                          # strip [16, 32)
-    base_row = r0 - halo
-    tile = video[:, :, base_row:r0 + hs + halo, :]
-    h_t = tile.shape[2]
-    hp_t, wp = h_t - ps + 1, w - ps + 1
-    gmax, _, rowpad, nc, ncpad = sm.tile_smat_layout(hp_t, wp, step)
-
-    f_cnt = t - cfg.pt + 1
-    vc = tile[:, :cfg.dist_chnls]
-    vq = jnp.concatenate([jnp.asarray(vc[f:f + f_cnt])
-                          for f in range(cfg.pt)], axis=1)
-    hpad = -(-h_t // 128) * 128
-    sy = sm.build_row_select_tile(qrow0, jnp.int32(base_row), hp_t, hp_g,
-                                  step, ps, hpad, gmax, rowpad)
-    dt = 1
-    vd = jnp.concatenate(
-        [jnp.asarray(np.roll(vc, -dt, axis=0)[f:f + f_cnt])
-         for f in range(cfg.pt)], axis=1)
-    a = np.asarray(sm.smat_distances_dt_tile(vq, vd, sy, ps, w_s, step,
-                                             gmax, rowpad, ncpad,
-                                             interpret=True))
-
-    # XLA fallback: traced selection from the dense tile planes
-    sel = np.asarray(sm.tile_sel_indices(qrow0, jnp.int32(base_row), hp_t,
-                                         hp_g, wp, step, gmax, rowpad,
-                                         ncpad))
-    d_all = np.asarray(_level_dense(jnp.asarray(tile),
-                                    cfg.replace(dense_impl="xla"))(dt))
-    d2 = d_all.reshape(w_s * w_s, f_cnt * hp_t * wp)
-    b = d2[:, sel.reshape(-1)].reshape(
-        w_s * w_s, f_cnt, rowpad, ncpad).transpose(1, 0, 2, 3)
-
-    # compare at the REAL slots only (garbage elsewhere): sites of the
-    # home strip, mapped through the traced site indexing
-    sites = lattice_sites(video.shape, cfg)
-    in_strip = (sites[:, 1] >= r0) & (sites[:, 1] < r0 + hs)
-    s_g = sites[in_strip]
-    s_l = s_g.copy()
-    s_l[:, 1] -= base_row
-    rows = np.asarray(sm.site_rows_smat_tile(
-        jnp.asarray(s_l), jnp.asarray(s_g[:, 1]), qrow0, step, hp_g,
-        gmax, rowpad, ncpad))
-    af = a.transpose(0, 2, 3, 1).reshape(-1, w_s * w_s)[rows]
-    bf = b.transpose(0, 2, 3, 1).reshape(-1, w_s * w_s)[rows]
-    assert np.isfinite(bf).all()
-
-    # in-bounds candidate mask (tile coords; queries are interior in y)
-    half = (w_s - 1) // 2
-    dgrid = np.arange(w_s)
-    cy = s_l[:, 1, None, None] - half + dgrid[None, :, None]
-    cx = s_l[:, 2, None, None] - half + dgrid[None, None, :]
-    ok = ((cy >= 0) & (cy <= hp_t - 1) & (cx >= 0)
-          & (cx <= wp - 1)).reshape(-1, w_s * w_s)
-    assert ok.mean() > 0.5                   # the pin is not vacuous
-    scale = np.abs(bf[ok]).max()
-    assert np.abs(af[ok] - bf[ok]).max() / scale < 0.01, (
-        np.abs(af[ok] - bf[ok]).max() / scale)
-
-
-def test_smat_kernel_matches_dense_interpret():
-    """The Pallas smat kernel vs the dense XLA path (interpret mode).
-
-    The kernel's bf16 selection-matmul distances carry ~0.4% rounding, so
-    the pin is: values within 1% relative, and every index disagreement is
-    a value-tie (the dense-path distance of the chosen candidate is within
-    1% of the dense-path distance of the reference candidate at that
-    rank) — the same tie-tolerance protocol as tests/test_oracle.py.
-    """
-    rng = np.random.default_rng(9)
-    video = rng.uniform(0, 255, (3, 3, 40, 44)).astype(np.float32)
-    cfg = default_config(20.0, preset="iphone").stage(1).replace(
-        nwt_b=1, nwt_f=1, npatches=10, border_mode="mask",
-        dense_impl="pallas")
-    sites = lattice_sites(video.shape, cfg)
-    v, s = jnp.asarray(video), jnp.asarray(sites)
-    fv, fi = exec_search_dense(
-        v, s, cfg.replace(dense_rows="full", dense_impl="xla"))
-    sv, si = exec_search_dense(v, s, cfg, qrow0=_phases(video.shape, cfg))
-    fv, fi, sv, si = map(np.asarray, (fv, fi, sv, si))
-
-    fin = np.isfinite(fv)
-    rel = np.abs(sv - fv) / np.maximum(np.abs(fv), 1e-2)
-    assert np.nanmax(np.where(fin, rel, 0)) < 0.01, rel.max()
-    mism = (si != fi) & fin
-    # disagreeing picks must be ties: near-equal distances at that rank
-    assert np.all(rel[mism] < 0.01)
-    assert (si == fi).mean() > 0.8, (si == fi).mean()
-
-
 def test_packed_poly_matches_unpacked():
     """2-groups-per-matrix block-diagonal packing of the econ filter
-    (round-2 judge item #2) changes nothing but op count."""
+    changes nothing but op count."""
     from vnlb_tpu.ops.polyspec import poly_filter_econ
 
     rng = np.random.default_rng(0)
@@ -386,27 +230,3 @@ def test_packed_poly_matches_unpacked():
                                     cfg.replace(poly_pack2=False)))
     # identical math up to bf16 storage rounding of reordered combines
     assert np.abs(a - b).max() / np.abs(b).max() < 5e-3
-
-
-def test_coarse_smat_kernel_matches_dense_interpret():
-    """The COARSE-level strided kernel (ops/pallas_smat.smat_distances_coarse
-    via coarse_plan) vs the all-dense XLA path, needle mode: same 1%-relative
-    value / tie-tolerant index protocol as the level-0 kernel test."""
-    rng = np.random.default_rng(13)
-    video = rng.uniform(0, 255, (3, 3, 48, 52)).astype(np.float32)
-    cfg = default_config(20.0, preset="iphone").stage(0).replace(
-        nwt_b=1, nwt_f=1, npatches=10, stype="needle", border_mode="mask",
-        dense_impl="pallas")
-    sites = lattice_sites(video.shape, cfg)
-    v, s = jnp.asarray(video), jnp.asarray(sites)
-    fv, fi = exec_search_dense(
-        v, s, cfg.replace(dense_rows="full", dense_impl="xla"))
-    sv, si = exec_search_dense(v, s, cfg, qrow0=_phases(video.shape, cfg))
-    fv, fi, sv, si = map(np.asarray, (fv, fi, sv, si))
-
-    fin = np.isfinite(fv)
-    rel = np.abs(sv - fv) / np.maximum(np.abs(fv), 1e-2)
-    assert np.nanmax(np.where(fin, rel, 0)) < 0.01, rel.max()
-    mism = (si != fi) & fin
-    assert np.all(rel[mism] < 0.01)
-    assert (si == fi).mean() > 0.8, (si == fi).mean()

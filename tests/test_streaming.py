@@ -89,7 +89,7 @@ def test_streaming_with_halo_mesh():
 @pytest.mark.slow
 def test_streaming_halo_1080_geometry():
     """Chunk-lattice phase anchoring at the BASELINE scale-out GEOMETRY
-    (round-4 judge item #5b): H=1080 (auto-padded to 1088), 8 strips,
+    H=1080 (auto-padded to 1088), 8 strips,
     multiple true sub-window chunks.  Streamed+sharded must track
     monolithic+sharded on interior frames at the test_halo closeness bar
     (both ride proc_nl_halo; only the chunk windows differ, and the

@@ -1,40 +1,18 @@
-"""vnlb_tpu — a TPU-native (JAX/XLA/Pallas) Video Non-Local Bayes framework.
+"""vnlb_tpu — a JAX/XLA Video Non-Local Bayes framework.
 
 Ground-up re-design of the VNLB video denoiser (Arias & Morel, JMIV 2018)
 with the capability surface of the reference implementation (see SURVEY.md):
 two-pass empirical-Bayes patch denoising with flow-aware space-time patch
-search, batched eigen-filtering, and deterministic on-device aggregation.
+search, batched eigen-filtering, and on-device aggregation.
 
 Public API parity (reference lib/vnlb/__init__.py:14-16):
     denoise, denoise_mod, proc_nl, proc_nl_cache, proc_nn
 """
 
-import os as _os
+from .utils.cache import enable_compile_cache as _enable_compile_cache
 
-# Persistent XLA compilation cache ON BY DEFAULT for library users: the
-# two-pass 480p pipeline compiles for ~2 minutes cold, seconds warm.  The
-# reference pays a fresh CUDA-jit/driver warmup every process; here a
-# first `vnlb_tpu.denoise()` in a new process reuses any prior process's
-# compilations.  Opt out with VNLB_TPU_NO_CACHE=1 or override the location
-# with JAX_COMPILATION_CACHE_DIR / VNLB_TPU_CACHE_DIR.  CPU-forced
-# processes skip it: XLA:CPU AOT executable (de)serialization is unreliable
-# on feature-mismatched hosts (observed segfaults — tests/conftest.py).
-if not _os.environ.get("VNLB_TPU_NO_CACHE") \
-        and _os.environ.get("JAX_PLATFORMS", "").strip() != "cpu":
-    _cache_dir = (_os.environ.get("JAX_COMPILATION_CACHE_DIR")
-                  or _os.environ.get("VNLB_TPU_CACHE_DIR",
-                                     "/tmp/vnlb_tpu_jax_cache"))
-    _os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", _cache_dir)
-    _os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-    import jax as _jax
-
-    # config.update works even when jax was imported (and its env snapshot
-    # taken) before vnlb_tpu
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:                                   # older jax knobs
-        pass
+# persistent XLA compilation cache ON BY DEFAULT (utils/cache.py)
+_enable_compile_cache()
 
 from .api import (denoise, denoise_mod, denoise_streaming,
                   proc_nl_cache, proc_nn)

@@ -1,7 +1,7 @@
 """Reference-order processing compat mode (parity experiments).
 
 The production pipeline (vnlb_tpu/pipeline.py) processes the whole coverage
-lattice deterministically in one jitted scan — a TPU-first redesign of the
+lattice deterministically in one jitted scan — a static-shape redesign of the
 reference's host-driven loop.  This module reproduces the REFERENCE's
 processing order for PSNR-parity experiments (SURVEY.md §7.1's "optional
 masked mode"):

@@ -1,4 +1,4 @@
-"""Configuration system for the TPU-native VNLB pipeline.
+"""Configuration system for the VNLB pipeline.
 
 Re-design of the reference flag system (reference: lib/vnlb/params.py:11-100):
 the reference keeps a dict of ``[step0, step1]`` lists plus a hidden hardcoded
@@ -115,7 +115,6 @@ class StageConfig:
                                     # masked +inf (every site rides the
                                     # dense fast path; the top-K near
                                     # borders picks from fewer candidates)
-    dense_impl: str = "auto"        # "auto" (pallas on TPU) | "pallas" | "xla"
     dense_rows: str = "auto"        # dense-path level-0 row coverage:
                                     # "auto" = strided-query rows when the
                                     # pipeline passes the lattice phases
@@ -138,9 +137,9 @@ class StageConfig:
     poly_deg: int = 12              # poly path: Chebyshev degree of the
                                     # smooth Wiener factor
     poly_bf16: bool = True          # poly path: store iteration matrices in
-                                    # bf16 between matmuls (the phase is
-                                    # HBM-bound; MXU multiplies are bf16 at
-                                    # default precision regardless)
+                                    # bf16 between matmuls (halves the
+                                    # phase's memory traffic; the matmuls
+                                    # run at default precision)
     poly_econ: bool = True          # evaluate the fused series with the
                                     # T_s-substitution + Clenshaw scheme
                                     # (~half the matmul ops; identical
@@ -158,48 +157,32 @@ class StageConfig:
                                     # in the K-dim GRAM domain (exact
                                     # polynomial division of the fitted
                                     # series, ops/polyspec._gram_maps) —
-                                    # K x K matrices instead of p x p, and
-                                    # 2K <= 128 packs two groups per tile
+                                    # K x K matrices instead of p x p
     poly_pack2: bool = True         # matrix-regime econ path: pack TWO
                                     # groups per block-diagonal matrix when
-                                    # 2p <= 128 (the MXU is weight-load-
-                                    # bound, so a 49-dim group wastes half
-                                    # the 128-lane tile; packing halves the
-                                    # matmul op count at identical math)
+                                    # 2p <= 128 (halves the matmul op count
+                                    # at identical math)
     search_bf16: bool = True        # store the dense per-dt candidate
-                                    # planes in bf16 between the search
-                                    # kernel and the per-site row take
-                                    # (halves the kernel-output write, the
+                                    # planes in bf16 between the distance
+                                    # scan and the per-site row take
+                                    # (halves the stored planes, the
                                     # layout transpose and the take
                                     # traffic; values upcast to f32 before
                                     # the offset/top-K math).  Distances
                                     # round ~0.4% relative — near-tie
-                                    # candidates can swap.  DEFAULT ON
-                                    # since round 5: the bench-scale A/B
-                                    # (scripts/ab_search_bf16.py, v5e-1
-                                    # 480p) measured -7/-6 ms per stage at
-                                    # -0.0007/+0.0001 dB end-to-end;
-                                    # quality gate in tests/test_knobs.py
+                                    # candidates can swap (measured
+                                    # -0.0007/+0.0001 dB end-to-end at
+                                    # 480p; GPU speed effect not measured).
+                                    # Quality gate in tests/test_knobs.py
                                     # (set False for f32 candidate planes)
     agg_bf16: bool = False          # stack the deferred-scatter update rows
                                     # in bf16 (halves the scan's stacked-
                                     # update buffer; the f32 accumulator
-                                    # adds exactly after an upcast).
-                                    # SPEED-NEUTRAL on v5e (0.573 vs
-                                    # 0.566 s stage-1 480p — the scatter is
-                                    # row-count-bound, not byte-bound), so
-                                    # this is a MEMORY knob for long
-                                    # streaming windows, not a speed one.
-                                    # Quality gate: tests/test_knobs.py
-    poly_impl: str = "xla"          # poly path backend: "xla" (ops/polyspec
-                                    # batched matmuls) | "fused"
-                                    # (ops/pallas_filter: multi-group
-                                    # VMEM-resident econ kernel, STEP-major
-                                    # group interleave; falls back to xla
-                                    # when the pack2 gates fail) | "pallas"
-                                    # (ops/pallas_poly, the round-2
-                                    # group-major kernel; kept as the
-                                    # documented slower design)
+                                    # adds exactly after an upcast) — a
+                                    # MEMORY knob for long streaming
+                                    # windows; GPU speed effect not
+                                    # measured.  Quality gate:
+                                    # tests/test_knobs.py
 
     # -- derived --
     @property
@@ -266,7 +249,7 @@ def default_config(sigma: float, preset: str = "iphone", verbose: bool = False,
     # sigma-adaptive fused-series degree: the econ gate's transition width
     # is ~1.2*(pi/deg)*sqrt(tau*lub) with tau = thresh*sigma^2 (+sigmab^2),
     # so holding width/tau ~ constant needs deg ~ 1/sqrt(tau) ~ 1/sigma^?;
-    # measured on the exact-eigh pin clip (scripts/tune_sigma10.py):
+    # measured on the exact-eigh pin clip (a poly_deg_fused sweep):
     # sigma=10 needs deg>=24 for the <=0.1 dB basic budget (16 leaks 0.135),
     # sigma=40 already holds it at 12.  deg = 16*sqrt(20/sigma), mult of 4,
     # reproduces 24/16/12 at sigma 10/20/40 (pinned by the test_polyspec

@@ -3,8 +3,10 @@
 The reference round-trips every batch to the host and runs a serial numba
 loop (lib/vnlb/agg/comp_agg.py:82-141, the pipeline's biggest self-inflicted
 bottleneck per SURVEY.md §3.5).  Here aggregation is a single on-device
-deterministic scatter-add: XLA scatter-add has a fixed combine order on TPU,
-so repeat runs are bitwise identical (the determinism test relies on this).
+scatter-add.  On the CPU XLA combines duplicate rows in a fixed order, so
+repeat runs are bitwise identical (the determinism test relies on this); on
+the GPU the f32 scatter-add uses atomics, and two runs of the 480p bench
+differ in the last bits (ROADMAP B2).
 
 Every (group, k) patch deposits its (pt, c, ps, ps) pixels at the decoded
 corner; weights count contributions per pixel.  Invalid entries contribute
@@ -78,7 +80,7 @@ def agg_patches(deno: jnp.ndarray, weights: jnp.ndarray,
 # column-space accumulator during the scan, fold densely once at pass end.
 # Row scatters have ~100x fewer scatter indices than per-pixel scatters
 # (B*K*pt rows of C*ps*ps floats instead of B*K*pt*ps*ps rows of C floats),
-# which is what the TPU scatter lowering cares about.
+# and a scatter's cost grows with its index count.
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=())
@@ -89,10 +91,9 @@ def agg_rows(acc: jnp.ndarray, patches: jnp.ndarray,
     acc:   (N, pt*D+1) column-space accumulator — pt*D patch lanes (the pt
            temporal patch planes ride ONE row: plane j's lanes semantically
            belong to row base + j*H'*W' and are shifted back at fold time)
-           plus ONE weight-count lane.  TPU scatter cost is per ROW, ~flat
-           in row width, so fusing the pt planes and the weight count into
-           a single row cuts the scatter bill pt+1 -fold vs per-plane rows
-           with a separate weight scatter.
+           plus ONE weight-count lane.  Fusing the pt planes and the
+           weight count into a single row cuts the scatter's index count
+           pt+1 -fold vs per-plane rows with a separate weight scatter.
     patches: (B, K, pt, C, ps, ps) filtered patches.
     rows:  (B, K) BASE row indices (plane 0 of gather.inds_to_rows).
     valid: (B,) or (B, K) — bool validity OR float per-patch aggregation
@@ -139,11 +140,9 @@ def fold(acc: jnp.ndarray, pt: int, ps: int, shape
     remaining dx shifts.  Each stage is one ``sum(pad(term))`` expression —
     XLA fuses the ps pads + adds into a single pass — where the previous
     ``.at[off:off+n].add`` chain was ps SERIALIZED read-modify-write passes
-    over the ~170 MB stage buffer (measured 115.7 ms/fold at stage-1 480p,
-    of which the transposes were only 14.3 ms and the weight box 11 ms —
-    ~90 ms was the RMW chains; scripts/exp_fold2.py.  The dense one-hot
-    conv col2im variant measured 278 ms there and the grouped-conv one
-    6.6x slower in scripts/exp_fold.py — both documented dead ends).
+    over the ~170 MB stage buffer (one-hot and grouped-conv col2im
+    variants were slower still on the accelerator it was first tuned on;
+    GPU costs not measured).
     Addend sets are unchanged and the dy/dx orders stay ascending; only
     the pt-plane combine regroups ((sum_j0) + (sum_j1) instead of
     interleaved adds) — a last-ulp fp reorder on overlap rows, same class

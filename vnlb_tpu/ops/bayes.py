@@ -38,7 +38,7 @@ def _to_bcnp(p: jnp.ndarray) -> jnp.ndarray:
     Accepts EITHER the public 6-D (B, K, pt, c, ps, ps) layout (transpose
     shuffles ps*ps-lane fragments) or c-major 4-D rows (B, K, c, p) from
     the fused arenas (gather.cols_fuse_pt c-major order) whose transpose
-    moves contiguous p-lane blocks — ~2.5x cheaper on TPU."""
+    moves contiguous p-lane blocks instead of ps*ps-wide fragments."""
     if p.ndim == 4:
         return jnp.transpose(p, (0, 2, 1, 3))
     b, k, pt, c, ps, _ = p.shape
@@ -115,32 +115,7 @@ def bayes_denoise(pnoisy: jnp.ndarray, pbasic: Optional[jnp.ndarray],
 
     if cfg.eig_method in ("rational", "poly"):
         if cfg.eig_method == "poly":
-            g_f, k_f, p_f = xc2.shape
-            use_fused = (cfg.poly_impl == "fused" and cfg.poly_econ
-                         and cfg.poly_pack2 and g_f % 2 == 0 and g_f >= 2
-                         and ((k_f < p_f and cfg.poly_gram
-                               and 2 * k_f <= 128)
-                              or (k_f >= p_f and 2 * p_f <= 128)))
-            if use_fused:
-                # multi-group VMEM-resident econ kernel (ops/pallas_filter):
-                # same math as the packed polyspec routes, MXU kept full by
-                # step-major group interleaving
-                interp = jax.default_backend() != "tpu"
-                if k_f < p_f:
-                    from .pallas_filter import poly_econ_gram_packed_pallas
-
-                    xf = poly_econ_gram_packed_pallas(xc2, xn2, cfg,
-                                                      interpret=interp)
-                else:
-                    from .pallas_filter import poly_econ_packed_pallas
-
-                    xf = poly_econ_packed_pallas(xc2, xn2, cfg,
-                                                 interpret=interp)
-            elif cfg.poly_impl == "pallas":
-                from .pallas_poly import poly_filter_pallas
-
-                xf = poly_filter_pallas(xc2, xn2, k, cfg)
-            elif cfg.poly_econ:
+            if cfg.poly_econ:
                 from .polyspec import poly_filter_econ
 
                 xf = poly_filter_econ(xc2, xn2, cfg)
@@ -214,8 +189,8 @@ def _wiener_coeff(lam, cfg: StageConfig):
 def _spectral_filter(xc2, cfg: StageConfig, rank):
     """Eigen-spectrum + filter basis of the group covariance.
 
-    Works in whichever domain is smaller (TPU-first redesign of the
-    reference's always-p x p cuSOLVER eigh, SURVEY.md §2.2 N7):
+    Works in whichever domain is smaller (a redesign of the reference's
+    always-p x p cuSOLVER eigh, SURVEY.md §2.2 N7):
 
     * ``cov`` domain (p <= K): eigh of C = X^T X / K (p x p);
     * ``gram`` domain (K < p): eigh of G = X X^T / K (K x K) — same nonzero
@@ -244,10 +219,10 @@ def _spectral_filter(xc2, cfg: StageConfig, rank):
 def _eigh(mats, cfg: StageConfig):
     """Batched symmetric eigh, eigenvalues descending.
 
-    ``cfg.eig_method``: "jacobi" (default) = the framework's vectorized
-    batched Jacobi (ops/eigh.py) — time scales with FLOPs, not with batch
-    count; "xla" = jnp.linalg.eigh (reference semantics, ~150us/matrix of
-    serialized per-matrix work on TPU, kept for verification).
+    ``cfg.eig_method``: "jacobi" = the framework's vectorized batched
+    Jacobi (ops/eigh.py) — time scales with FLOPs, not with batch count;
+    "xla" = jnp.linalg.eigh (reference semantics; on the GPU XLA calls
+    cuSOLVER's batched syevd — the exact anchor for verification).
     """
     if cfg.eig_method == "xla":
         w, v = jnp.linalg.eigh(mats)

@@ -1,14 +1,14 @@
 """Vectorized batched symmetric eigendecomposition (cyclic Jacobi).
 
 Why this exists (SURVEY.md §7 hard part #2): the Bayes filter needs an eigh
-of ~10^5 small (49..98-dim) covariance/Gram matrices per frame.  XLA's
-``jnp.linalg.eigh`` on TPU costs ~150-200us *per matrix* (serialized
-per-matrix sweeps), i.e. tens of seconds per frame — two orders of magnitude
-off the throughput target.  This implementation is a classic one-sided-free
-cyclic Jacobi restructured for the TPU's SIMD model:
+of ~10^5 small (49..98-dim) covariance/Gram matrices per frame.  Where
+``jnp.linalg.eigh`` serializes per-matrix sweeps, that is tens of seconds
+per frame (on the GPU, cuSOLVER's batched eigh measured 1.7-2.1 us per
+49-60-dim matrix — ROADMAP A4).  This implementation is a classic
+one-sided-free cyclic Jacobi restructured for a SIMD model:
 
 * **batch-trailing layout** ``(n, n, G)``: the batch axis G lives in the
-  lane dimension, so every rotation update is an elementwise VPU op over
+  lane dimension, so every rotation update is an elementwise op over
   thousands of matrices simultaneously — wall time scales with total FLOPs,
   not with matrix count;
 * **round-robin rotation schedule**: each round applies n/2 *disjoint*

@@ -1,4 +1,4 @@
-"""Pyramidal optical flow estimators (jittable, TPU-friendly).
+"""Pyramidal optical flow estimators (jittable, static shapes).
 
 The reference obtained TV-L1 flow from the external SWIG C++ package
 (``svnlb.swig.runPyFlow``, reference tests/test_gpu_sim_search.py:125-128)
@@ -12,7 +12,7 @@ noisy))`` is self-contained.  Two methods:
   moving frame; per warp, a fixed number of primal-dual iterations — a
   pointwise residual thresholding step and a dual TV ascent with forward
   differences / divergence.  Everything is elementwise + 1-px stencils on
-  static shapes (jit/TPU friendly); the published stopping criterion is
+  static shapes (jit friendly); the published stopping criterion is
   replaced by a fixed iteration count (data-independent control flow).
 * ``lk_flow`` — dense iterative Lucas-Kanade (upsample, warp, a few
   Gauss-Newton steps on per-pixel 2x2 box-window normal equations).

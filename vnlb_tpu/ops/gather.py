@@ -37,7 +37,7 @@ def fill_patches(video: jnp.ndarray, inds: jnp.ndarray, pt: int, ps: int
 # ---------------------------------------------------------------------------
 # im2col ("patch-column") fast path
 #
-# TPU gathers of tiny (ps-wide) slices are slow; instead the video is
+# Gathers of tiny (ps-wide) slices are slow; instead the video is
 # unfolded ONCE per pass into (T, H', W', C*ps*ps) patch columns, and patch
 # groups become contiguous row gathers (aggregation scatters rows back into
 # the same space — see ops/agg.py).  H' = H-ps+1, W' = W-ps+1: exactly the
@@ -62,10 +62,10 @@ def im2col_conv(video: jnp.ndarray, ps: int, bf16: bool = True
     C*ps*ps) in bf16 (or f32).
 
     The slice-stack-transpose form of ``im2col`` lowers to ~150 chunked
-    dynamic-update-slices plus a relayout (~30-40 ms per 480p arena
-    traced); a VALID conv with a one-hot (ps, ps, C, C*ps*ps) kernel emits
-    the same columns in one MXU op (~90 GFLOP at 480p).  Values are
-    BITWISE identical: each output element has exactly one nonzero kernel
+    dynamic-update-slices plus a relayout; a VALID conv with a one-hot
+    (ps, ps, C, C*ps*ps) kernel emits the same columns in one op (~90
+    GFLOP at 480p; pinned bitwise on the GPU by tests/test_gpu.py).
+    Values are BITWISE identical: each output element has exactly one nonzero kernel
     term, bf16 products x*1 are exact on the bf16-cast input, and the f32
     path uses HIGHEST precision (exact 3-way bf16 splitting, recombined
     losslessly for a 0/1 multiplier).
@@ -95,9 +95,8 @@ def arena_conv(imgs, ps: int, pt: int, bf16: bool = True) -> jnp.ndarray:
     Bitwise equal to im2col_conv -> cols_fuse_pt(c-major) -> lane concat,
     but the pt-fusion and the noisy/basic join ride the conv kernel's
     output channels instead of a roll/concat graph — XLA lowered that graph
-    to ~1470 per-(frame, lane) dynamic-update-slices (~0.12 s/pass at 480p
-    traced; scripts/exp_arena.py measures this form ~15% faster end-to-end
-    including the consumer take).  Lane order per image block: (ci, f_off,
+    to ~1470 per-(frame, lane) dynamic-update-slices.  Lane order per
+    image block: (ci, f_off,
     dy, dx) — gather.cols_fuse_pt's c-major order.  Rows of the last pt-1
     frames carry frame-wrapped garbage, exactly like cols_fuse_pt's roll;
     they are never addressed (inds_to_rows clips the base frame)."""
@@ -155,27 +154,17 @@ def inds_to_rows(inds: jnp.ndarray, shape, ps: int, pt: int) -> jnp.ndarray:
     return base[:, :, None] + dt[None, None, :]         # (B, K, pt)
 
 
-@functools.partial(jax.jit, static_argnames=("pt", "ps", "c", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("pt", "ps", "c"))
 def fill_patches_cols(cols_flat: jnp.ndarray, rows: jnp.ndarray,
-                      pt: int, ps: int, c: int,
-                      use_pallas: bool = False) -> jnp.ndarray:
+                      pt: int, ps: int, c: int) -> jnp.ndarray:
     """Row-gather patches: (N, C*ps*ps) cols + (B, K, pt) rows ->
     (B, K, pt, C, ps, ps) in the ARENA dtype (bf16 arenas stay bf16: the
     consumer — bayes centering / flat stats — upcasts AFTER its layout
     transpose, halving the transpose traffic; the bf16->f32 cast is exact,
-    so results are bitwise unchanged).
-
-    ``use_pallas`` routes through the async-DMA gather kernel
-    (ops/pallas_gather.py) — XLA's TPU gather is ~serial per row."""
+    so results are bitwise unchanged)."""
     b, k, _ = rows.shape
     d = c * ps * ps
-    if use_pallas:
-        from .pallas_gather import gather_rows
-
-        # cols must be lane-padded (width % 128 == 0) by the caller
-        out = gather_rows(cols_flat, rows.reshape(-1))[:, :d]
-    else:
-        out = jnp.take(cols_flat, rows.reshape(-1), axis=0)[:, :d]
+    out = jnp.take(cols_flat, rows.reshape(-1), axis=0)[:, :d]
     return out.reshape(b, k, pt, c, ps, ps)
 
 
@@ -183,8 +172,8 @@ def cols_fuse_pt(cols_flat: jnp.ndarray, pt: int, hpwp: int,
                  c: int = 0) -> jnp.ndarray:
     """(N, D) -> (N, pt*D): row r additionally carries rows r + j*hpwp
     (the SAME patch corner in the next pt-1 frames), so a pt-frame patch
-    becomes ONE row gather instead of pt — XLA's TPU take is ~per-row
-    cost, so halving the row count (pt=2) halves the gather bill for the
+    becomes ONE row gather instead of pt — a take's cost grows with its
+    row count, so halving the row count (pt=2) cuts the gather bill for the
     price of a pt x larger (dense-built) arena.  Rows whose shifted source
     runs past the last frame are never addressed (inds_to_rows clips the
     base frame to T-pt).
@@ -192,8 +181,8 @@ def cols_fuse_pt(cols_flat: jnp.ndarray, pt: int, hpwp: int,
     ``c > 0`` selects the C-MAJOR lane order (c, pt, ps*ps) instead of
     (pt, c, ps*ps): the Bayes filter groups per channel, so c-major rows
     reach its (B, c, K, p) layout by moving CONTIGUOUS p-lane blocks —
-    the pt-major order made that transpose shuffle ps*ps-lane fragments
-    (traced ~2.5x slower).  The aggregation accumulator keeps its own
+    the pt-major order made that transpose shuffle ps*ps-lane fragments.
+    The aggregation accumulator keeps its own
     (pt, c, ps*ps) lane order; arena and accumulator never meet."""
     if pt == 1:
         return cols_flat
@@ -224,10 +213,10 @@ def fill_patches_cols_fused(cols_pt: jnp.ndarray, rows_base: jnp.ndarray,
 def fill_patches_cols_joint(cols_join: jnp.ndarray, rows_base: jnp.ndarray,
                             pt: int, ps: int, c: int):
     """One take over a lane-JOINED pair of c-major pt-fused arenas
-    (noisy ++ basic): XLA's TPU take is ~per-row cost, so gathering both
-    step-2 arenas from a (N, 2*pt*D) concat at the same rows halves the
-    gather bill vs two takes.  Returns (pnoisy, pbasic), each
-    (B, K, c, pt*ps*ps) in the arena dtype."""
+    (noisy ++ basic): gathering both step-2 arenas from a (N, 2*pt*D)
+    concat at the same rows halves the take's row count vs two takes.
+    Returns (pnoisy, pbasic), each (B, K, c, pt*ps*ps) in the arena
+    dtype."""
     b, k = rows_base.shape
     d = c * ps * ps
     out = jnp.take(cols_join, rows_base.reshape(-1), axis=0)

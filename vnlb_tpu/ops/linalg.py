@@ -1,15 +1,15 @@
 """Vectorized batched dense linear algebra (batch-in-lanes layout).
 
-XLA's LAPACK-style ops (cholesky/eigh/solve) on TPU serialize per matrix
-(~15-200us each), which is unusable at this framework's ~10^5 matrices/frame.
-These routines keep the batch axis G in the trailing (lane) dimension so
-every factorization step is an elementwise/VPU op over all matrices at once;
+XLA's LAPACK-style ops (cholesky/eigh/solve) can serialize per matrix,
+which is unusable at this framework's ~10^5 matrices/frame.  These routines
+keep the batch axis G in the trailing (lane) dimension so every
+factorization step is an elementwise op over all matrices at once;
 the sequential depth is only n (the matrix size, <= ~128).
 
 The row/column recurrences run under ``lax.fori_loop`` with full-width
 masked updates (constant shapes per step): ~2x the triangular FLOPs, but a
-tiny compiled graph — important because the TPU (Mosaic) compiler chokes on
-n-step unrolled variable-shape loops.
+tiny compiled graph (n-step unrolled variable-shape loops compile
+slowly).
 
 Used by the rational spectral filter (ops/spectral.py).
 """
@@ -66,7 +66,7 @@ def chol_inverse(mats: jnp.ndarray) -> jnp.ndarray:
 
     A^{-1} = L^{-T} L^{-1} with the factor and substitution fully
     vectorized over the batch; the closing Gram product is one batched
-    matmul (MXU).
+    matmul.
     """
     g, n, n2 = mats.shape
     assert n == n2

@@ -6,7 +6,7 @@ batches from it (mask.py:18-31 ``mask2inds``), removing processed sites and
 their matches each step (mask.py:37-86).  Random draws force a host sync per
 batch and make the output order-dependent.
 
-TPU-native redesign (SURVEY.md §7.1): the lattice is a pure function of the
+Redesign (SURVEY.md §7.1): the lattice is a pure function of the
 video shape and the stage config, so we enumerate it **densely at trace time**
 with vectorized numpy, in raster (t, h, w) order, and process every lattice
 site in fixed-size batches inside one ``lax.scan``.  This is deterministic,

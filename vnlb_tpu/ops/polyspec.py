@@ -1,9 +1,9 @@
-"""Polynomial spectral Wiener filter — MXU-native fast path for the Bayes step.
+"""Polynomial spectral Wiener filter — matmul-only fast path for the Bayes step.
 
 Why (round-2 redesign of ops/spectral.py): the rational fast path evaluates
 its spectral transfer function with batched Cholesky inverses whose
-``fori_loop`` recurrences are *latency*-bound on TPU (~300 dependent
-micro-steps per batch — the dominant pipeline phase in the round-1 profile),
+``fori_loop`` recurrences are *latency*-bound (~300 dependent
+micro-steps per batch — the dominant pipeline phase in an early profile),
 and its softened gate runs the basic pass ~0.5 dB soft.  This module
 evaluates the exact transfer function (reference
 lib/vnlb/deno/bayes_est.py:129-144, "clipped" mode)
@@ -11,8 +11,8 @@ lib/vnlb/deno/bayes_est.py:129-144, "clipped" mode)
     f(lam) = [lam > tau] * (lam - sb2) / (lam - sb2 + s2),
     tau    = thresh * s2 + sb2
 
-entirely with batched matrix products — the only TPU primitive that runs at
-MXU speed and parallelizes freely over the ~10^5 patch groups per frame:
+entirely with batched matrix products — which run on the matrix units and
+parallelize freely over the ~10^5 patch groups per frame:
 
 * the hard gate ``[lam > tau]`` is a **matrix sign** iteration on
   (C - tau I)/c.  The schedule composes two polynomial families (cf. the
@@ -46,8 +46,8 @@ Three evaluators, in order of arrival (the config dispatches in bayes.py):
 * ``poly_filter_fused``— ONE combined gate x Wiener Chebyshev series
   through the left-side T_j recurrence (K < p only).
 * ``poly_filter_econ`` — PRODUCTION: the same combined series evaluated
-  with the T_s-substitution + Clenshaw scheme (~half the matmul ops; the
-  filter phase is MXU weight-load-bound, so op COUNT is the wall).
+  with the T_s-substitution + Clenshaw scheme (~half the matmul ops of
+  small batched products, whose op COUNT sets the filter phase's time).
 
 Accuracy is pinned against the exact-eigh path by tests/test_polyspec.py.
 """
@@ -116,10 +116,10 @@ def poly_filter(xc2: jnp.ndarray, xn2: jnp.ndarray, cfg) -> jnp.ndarray:
     rowsum = jnp.max(jnp.sum(jnp.abs(a_cov), axis=2), axis=1)
     lub = jnp.maximum(jnp.minimum(tr, rowsum), 1.5 * tau) * 1.02
 
-    # matrices are STORED in bf16 between matmuls (MXU multiplies are bf16
-    # at default precision anyway; fp32 storage would only add HBM traffic
-    # — the phase is bandwidth-bound, ~20 batched (p,p) intermediates per
-    # group).  Accumulation and elementwise combines stay fp32.  The sign
+    # matrices are STORED in bf16 between matmuls (default-precision
+    # matmuls round their inputs anyway — TF32 on the GPU; fp32 storage
+    # would double the memory traffic of ~20 batched (p,p) intermediates
+    # per group).  Accumulation and elementwise combines stay fp32.  The sign
     # iteration has attracting fixed points at +-1, so bf16 rounding does
     # not accumulate; quality is pinned by tests/test_polyspec.py.
     sdty = jnp.bfloat16 if cfg.poly_bf16 else jnp.float32
@@ -260,9 +260,8 @@ def poly_filter_fused(xc2: jnp.ndarray, xn2: jnp.ndarray, cfg) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 # Economized evaluation: T_s substitution + Clenshaw.
 #
-# The matmul-op COUNT is the wall for the filter phase (per-op cost on the
-# MXU is ~flat across (K,p)@(p,p) and (p,p)@(p,p) at p_pad=128 — weight
-# load dominates).  A degree-(m*s-1) polynomial is evaluated with
+# The matmul-op COUNT sets the filter phase's time (per-op cost of these
+# small batched products is ~flat across (K,p)@(p,p) and (p,p)@(p,p)).  A degree-(m*s-1) polynomial is evaluated with
 # s-1 (+1) matmuls for the inner residues, 2-3 for B = T_s(Ah) via the
 # power identities, and m Clenshaw steps in B — ~8-10 ops instead of the
 # D=16 ops of the plain T_j recurrence (left regime), ~9-10 instead of
@@ -398,7 +397,7 @@ def poly_filter_econ(xc2: jnp.ndarray, xn2: jnp.ndarray, cfg) -> jnp.ndarray:
         # SPD upper bound works for lub).  Stage 1 (K=60, p=98): ~7
         # effective matmul ops per group vs ~11 98-dim ops on the
         # left-regime route, because 2K <= 128 lets the Clenshaw chain
-        # pack two groups per MXU tile.
+        # pack two groups per block-diagonal matrix.
         if cfg.poly_pack2 and 2 * k <= 128 and g % 2 == 0 and g >= 2:
             return _poly_econ_gram_packed(xc2, xn2, m, s, nodes, tau, cfg,
                                           transfer_vals)
@@ -549,16 +548,15 @@ def _poly_econ_gram_packed(xc2, xn2, m, s, nodes, tau, cfg, transfer_vals,
     are computed directly as ONE (nK, p) @ (p, nK) matmul per n-tuple with a
     constant 0/1 block mask fused into the epilogue — no separate per-group
     matmuls and no block-diagonal assembly (the ``zeros().at[].set`` form
-    lowered to TPU scatters costing ~0.23 s/two-pass at 480p; a pad+concat
-    form still costs two dense copies).  The masked diagonal blocks contract
+    lowers to scatters; a pad+concat form still costs two dense
+    copies).  The masked diagonal blocks contract
     over the same K terms as the unpacked products, and every chain step
     preserves exact block-diagonality (off-diagonal zeros stay zero through
     products and the diagonal eye), so results match the unpacked route to
     fp rounding of the lub scaling order.
 
-    ``n_pack`` (round-4 judge item #2b): the filter floor is per-matmul-op
-    sequencing, so wider packs cut op count further at n x the MXU tile
-    work per op — measured on v5e by scripts/exp_filter_packn.py."""
+    ``n_pack``: wider packs cut the matmul op count further at n x the
+    work per op (GPU effect not measured)."""
     g, k, p = xc2.shape
     n = n_pack
     g2, k2 = g // n, n * k
@@ -617,10 +615,8 @@ def _poly_econ_packed(xc2, xn2, m, s, nodes, tau, cfg, transfer_vals,
     lane-stacked (K, np)^T @ (K, np) product per n-tuple with a constant
     0/1 block mask fused into the epilogue (see _poly_econ_gram_packed for
     why this beats assembling block diagonals).  Cuts the matmul op count
-    n-fold (round-2 judge item #2: the step-0 iphone preset runs p=49,
-    under half the 128-lane MXU tile; round-4 item #2b asks for wider
-    packs — measured by scripts/exp_filter_packn.py).  Returns (G, K, p)
-    filtered rows."""
+    n-fold (the step-0 iphone preset runs p=49, so two groups fit a
+    98-dim block-diagonal matrix).  Returns (G, K, p) filtered rows."""
     g, k, p = xn2.shape
     n = n_pack
     g2, p2 = g // n, n * p

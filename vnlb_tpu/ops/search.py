@@ -8,15 +8,15 @@ contract reconstructed in SURVEY.md §2.2 N1): for every query site
 optical-flow trajectory, and return the K smallest patch distances plus the
 flat indices (codec ``t*(c*h*w) + y*w + x``) of the matching patch corners.
 
-TPU-first design decisions
---------------------------
+Design decisions
+----------------
 * Static shapes everywhere: every site always evaluates exactly
   ``n_dt * w_s**2`` candidates.  Near spatial borders the window *slides* to
   stay inside the valid patch area (the C++ oracle implements the identical
   sliding rule), keeping the candidate count constant and duplicate-free.
   Temporally-invalid frames are masked with +inf distances; since
   ``w_s**2 >= K`` for every preset, at least K valid candidates always exist.
-* Distances are computed with the MXU via the decomposition
+* Distances are computed with matrix units via the decomposition
   ``||q - c||^2 = ||q||^2 + ||c||^2 - 2 q.c``: for each (site, frame) the
   halo'd search region is gathered once and a single grouped convolution
   produces both the cross-correlation ``q.c`` and the box-sum ``||c||^2``.
@@ -30,7 +30,7 @@ TPU-first design decisions
   position wins, and the query patch itself (distance ``-offset``) is always
   selected first among zero-distance ties.
 * ``stype == "needle"`` augments the distance with coarse-scale terms from an
-  average-pooled pyramid (a TPU-friendly stand-in for the reference's
+  average-pooled pyramid (a static-shape stand-in for the reference's
   needle-match mode, params.py:88).
 """
 
@@ -145,7 +145,7 @@ def x_im2col(video, r):
 
     (T, c_d, H, W) -> flat (T*H*W', c_d*r) with W' = W-r+1: row (t, y, x)
     holds video[t, :, y, x:x+r].  Region gathers then become contiguous
-    row-segment gathers (TPU gathers of small 2-D slices are ~10x slower).
+    row-segment gathers (gathers of small 2-D slices are much slower).
     """
     t, c, h, w = video.shape
     wp = w - r + 1
@@ -157,7 +157,7 @@ def x_im2col(video, r):
 def x_im2col_rfused(video, r):
     """r-row-fused unfolding: row (t, y, x) holds the WHOLE r x r region
     video[t, :, y:y+r, x:x+r], so a region gather is ONE row take instead
-    of r — XLA's TPU take is ~per-row cost (r x the arena memory; the
+    of r — a take's cost grows with its row count (r x the arena memory; the
     build is r dense shifted copies).  Wrapped bottom rows are only ever
     addressed by clamped (invalid) regions whose values are masked."""
     t, c, h, w = video.shape
@@ -249,7 +249,7 @@ def _level_distances(video, xcols_flat, sites, centers, cfg: StageConfig,
             inp, filt, window_strides=(1, 1), padding="VALID",
             dimension_numbers=("NCHW", "OIHW", "NCHW"),
             # full fp32: the ||a||^2+||b||^2-2ab decomposition is
-            # cancellation-prone; bf16 MXU passes reorder the top-K
+            # cancellation-prone; bf16/TF32 passes reorder the top-K
             precision=lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32)               # (n_dt, 2, w_s, w_s)
         qsum = jnp.sum(q * q)

@@ -18,6 +18,11 @@ reduction over the per-site path.  Non-interior (border) sites — whose
 window clamps — keep the exact gather path; the pipeline splits the site
 list statically (ops/mask.interior_split).
 
+Strided queries: when the caller passes the coverage-lattice phases
+(``qrow0``), each per-offset scan step keeps only the distances at lattice
+positions (ops/lattice_layout), so the stored candidate planes shrink by
+~step_s^2 while the values stay bit-equal to the all-pixels planes.
+
 Candidate enumeration order (dt asc, dy, dx) and the top-K merge order are
 identical to ops/search.exec_search, so ties resolve identically and the
 two paths return bit-equal results for interior sites (pinned by
@@ -31,11 +36,20 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 
 from ..config import StageConfig
-from .search import _avg_pool2
+from .lattice_layout import (coarse_plan, site_rows_coarse, site_rows_smat,
+                             site_rows_smat_tile, smat_sel_indices,
+                             tile_sel_indices)
+from .search import _apply_tau, _avg_pool2, eff_dt_range
+
+# Byte budget of one stacked chunk of candidate planes (see _level_parts).
+# A fixed gate sized for the small device memory of the accelerator this
+# pipeline was first written for: it only splits the row take (equal
+# results) and is safe on an 80 GB card.  ROADMAP A7 derives it from the
+# device's memory_stats()["bytes_limit"].
+_CHUNK_BYTES = int(3e9)
 
 
 def _box_ps(x, ps):
@@ -49,12 +63,16 @@ def _box_ps(x, ps):
     return xc
 
 
-def _level_dense(video, cfg: StageConfig):
-    """Per-level dense candidate distances.
+def _level_dense(video, cfg: StageConfig, sel=None):
+    """Per-level candidate distances, one temporal offset per call.
 
-    Returns d_all (n_dt, w_s*w_s, F, H', W') float32 raw squared distances
-    where F = T-pt+1 (rows for temporally-invalid dt contain garbage and are
-    masked by the caller).
+    Returns per_dt(dt) -> (w_s*w_s, F, H', W') float32 raw squared
+    distances where F = T-pt+1 (rows for temporally-invalid dt contain
+    garbage and are masked by the caller).  With ``sel`` (flat int32
+    indices into the (F*H'*W')-flattened plane) each per-offset scan step
+    keeps only those positions: per_dt(dt) -> (w_s*w_s, sel.size), the
+    same values as selecting from the full planes afterwards, without
+    ever storing them.
     """
     t_len, _, h, w = video.shape
     ps, pt, c_d, w_s = cfg.ps, cfg.pt, cfg.dist_chnls, cfg.w_s
@@ -64,42 +82,16 @@ def _level_dense(video, cfg: StageConfig):
     vc = video[:, :c_d]                                    # (T, c_d, H, W)
     v2 = jnp.sum(vc * vc, axis=1)                          # (T, H, W)
     v2p = sum(v2[f:f + f_cnt] for f in range(pt))          # (F, H, W)
-    boxv2 = _box_ps(v2p, ps)                               # (F, H', W')
-    q2 = boxv2
+    q2 = _box_ps(v2p, ps)                                  # (F, H', W')
 
     pad = ((0, 0), (half, half), (half, half))
-
     pad4 = ((0, 0), (0, 0), (half, half), (half, half))
     hp, wp = h - ps + 1, w - ps + 1
-
-    use_pallas = (cfg.dense_impl == "pallas"
-                  or (cfg.dense_impl == "auto"
-                      and jax.default_backend() == "tpu"))
-    if use_pallas:
-        from .pallas_dense import dense_distances_dt
-
-        interp = jax.default_backend() != "tpu"
-
-        def stack_pt(x):                                   # (T,c,H,W)->(F,ptc,H,W)
-            return jnp.concatenate(
-                [x[f:f + f_cnt] for f in range(pt)], axis=1)
-
-        vq = stack_pt(vc)
-
-        def per_dt_pallas(dt):
-            vd = stack_pt(jnp.roll(vc, -dt, axis=0))
-            b2d = jnp.roll(boxv2, -dt, axis=0)
-            out = dense_distances_dt(vq, vd, q2, b2d, ps, w_s,
-                                     interpret=interp)     # (F,ws2,Hp8,W')
-            out = out[:, :, :hp, :]
-            return jnp.transpose(out, (1, 0, 2, 3))        # (ws2, F, H', W')
-
-        return per_dt_pallas
 
     def per_dt(dt):
         vd = jnp.roll(vc, -dt, axis=0)                     # V[t+dt] at row t
         vd_pad = jnp.pad(vd, pad4)                         # (T, c_d, H+, W+)
-        b2d = jnp.roll(boxv2, -dt, axis=0)                 # (F, H', W')
+        b2d = jnp.roll(q2, -dt, axis=0)                    # (F, H', W')
         b2pad = jnp.pad(b2d, pad)
 
         def per_delta(_, didx):
@@ -114,171 +106,35 @@ def _level_dense(video, cfg: StageConfig):
             cross = _box_ps(prod_pt, ps)                   # (F, H', W')
             b2s = lax.dynamic_slice(b2pad, (0, a, b), (f_cnt, hp, wp))
             d = q2 + b2s - 2.0 * cross
+            if sel is not None:
+                d = jnp.take(d.reshape(-1), sel, mode="clip")
             return None, d
 
         _, d_all = lax.scan(per_delta, None,
                             jnp.arange(w_s * w_s, dtype=jnp.int32))
-        return d_all                                       # (ws*ws, F, H', W')
+        return d_all
 
     return per_dt
 
 
-def _smat_sel_indices(qrow0, hp: int, wp: int, step: int) -> np.ndarray:
-    """Static (F, rowpad, ncpad) flat indices into (F*H'*W')-flattened dense
-    planes realizing the smat phase-major layout (ops/pallas_smat docstring)
-    by pure selection — the XLA fallback for smat_distances_dt.  Garbage
-    slots point at position 0 (never addressed by site_rows_smat)."""
-    from .pallas_smat import smat_layout
+def _level(video, cfg: StageConfig, pdty, sel=None):
+    """(per_dt, pos): per_dt(dt) -> (pos, w_s*w_s) candidate rows in
+    ``pdty``, one row per query position — every pixel of the (F, H', W')
+    plane, or the ``sel`` lattice slots in their layout order.
 
-    gmax, rows_pm, rowpad, nc, ncpad = smat_layout(hp, wp, step)
-    f_cnt = len(qrow0)
-    sel = np.zeros((f_cnt, rowpad, ncpad), np.int64)
-    for f, ph0 in enumerate(qrow0):
-        ph = int(ph0) % step
-        for row in range(rows_pm):
-            g, j = row // gmax, row % gmax        # block g = column phase
-            if j == gmax - 2:                     # first_h spare (block ph)
-                if g != ph:
-                    continue
-                y, c = 0, ph
-            elif j == gmax - 1:                   # last_h spare (block 0)
-                if g != 0:
-                    continue
-                y, c = hp - 1, 0
-            else:
-                k = (g - ph) % step + j * step
-                y = ph + k * step
-                if y > hp - 1:
-                    continue
-                c = g
-            cols = np.zeros((ncpad,), np.int64)
-            cols[1] = wp - 1
-            m_cnt = (wp - 1 - c) // step + 1
-            cols[2:2 + m_cnt] = c + np.arange(m_cnt) * step
-            sel[f, row] = f * (hp * wp) + y * wp + cols
-    return sel
-
-
-def _level_dense_smat(video, cfg: StageConfig, qrow0):
-    """Strided-query per-dt distances for level 0 (zero flow), smat layout.
-
-    Computes level-0 candidate distances ONLY at coverage-lattice positions
-    (both row AND column stride — at the production stride 6 the dense
-    all-pixels path wastes ~35/36 of its box-sum work, round-2 judge item
-    #1): the MXU selection-matmul kernel (ops/pallas_smat.py) on TPU, pure
-    row/column selection from the dense XLA planes elsewhere (bit-equal to
-    the dense path by construction there; the kernel's squared-difference
-    form is fp-rounding-close and pinned by tests/test_search_strided.py).
-
-    Returns per_dt(dt) -> (F, ws2, rowpad, ncpad) in the phase-major
-    compressed layout of ops/pallas_smat.site_rows_smat.
-    """
-    t_len, _, h, w = video.shape
-    ps, pt, c_d, w_s = cfg.ps, cfg.pt, cfg.dist_chnls, cfg.w_s
-    step = cfg.step_s
-    f_cnt = t_len - pt + 1
-    hp, wp = h - ps + 1, w - ps + 1
-
-    use_pallas = (cfg.dense_impl == "pallas"
-                  or (cfg.dense_impl == "auto"
-                      and jax.default_backend() == "tpu"))
-    if use_pallas:
-        from .pallas_smat import smat_distances_dt
-
-        interp = jax.default_backend() != "tpu"
-        vc = video[:, :c_d]
-
-        def stack_pt(x):
-            return jnp.concatenate(
-                [x[f:f + f_cnt] for f in range(pt)], axis=1)
-
-        vq = stack_pt(vc)
-
-        def per_dt(dt):
-            vd = stack_pt(jnp.roll(vc, -dt, axis=0))
-            return smat_distances_dt(vq, vd, qrow0, ps, w_s, step,
-                                     interpret=interp)
-
-        return per_dt
-
-    # XLA: select the smat layout out of the dense planes (bit-equal values;
-    # the selection only changes the layout)
-    from .pallas_smat import smat_layout
-
-    _, _, rowpad, _, ncpad = smat_layout(hp, wp, step)
-    flat_sel = jnp.asarray(
-        _smat_sel_indices(qrow0, hp, wp, step).reshape(-1))
-    per_dt_full = _level_dense(video, cfg.replace(dense_impl="xla"))
-
-    def per_dt(dt):
-        d_all = per_dt_full(dt)                    # (ws2, F, H', W')
-        d2 = d_all.reshape(w_s * w_s, f_cnt * hp * wp)
-        sel = jnp.take(d2, flat_sel, axis=1)
-        return jnp.transpose(
-            sel.reshape(w_s * w_s, f_cnt, rowpad, ncpad), (1, 0, 2, 3))
-
-    return per_dt
-
-
-def _level_dense_smat_coarse(video_lvl, cfg: StageConfig, qrow0, lvl: int,
-                             hp0: int, wp0: int):
-    """Strided-query distances for a COARSE needle level (zero flow).
-
-    The coarse query positions are the clamped scaled lattice positions
-    (``_site_rows``); the per-phase ``coarse_plan`` layout encodes them
-    for ANY (stride, level) — the per-block column slot lists absorb
-    non-uniform scaled lattices, so no divisibility is required (the
-    dense all-pixels coarse path computed ~step^2/4^lvl more box-sum work
-    at the production stride).  TPU: the Pallas selection-matmul kernel
-    (fp-rounding-close); elsewhere: pure selection from the dense coarse
-    planes (bit-equal by construction).
-
-    Returns per_dt(dt) -> (F, ws2, rowpad, ncpad) in coarse_plan layout.
-    """
-    t_len, _, h_l, w_l = video_lvl.shape
-    ps, pt, c_d, w_s = cfg.ps, cfg.pt, cfg.dist_chnls, cfg.w_s
-    f_cnt = t_len - pt + 1
-
-    use_pallas = (cfg.dense_impl == "pallas"
-                  or (cfg.dense_impl == "auto"
-                      and jax.default_backend() == "tpu"))
-    if use_pallas:
-        from .pallas_smat import smat_distances_coarse
-
-        interp = jax.default_backend() != "tpu"
-        vc = video_lvl[:, :c_d]
-
-        def stack_pt(x):
-            return jnp.concatenate(
-                [x[f:f + f_cnt] for f in range(pt)], axis=1)
-
-        vq = stack_pt(vc)
-
-        def per_dt(dt):
-            vd = stack_pt(jnp.roll(vc, -dt, axis=0))
-            return smat_distances_coarse(vq, vd, qrow0, lvl, hp0, wp0,
-                                         ps, w_s, cfg.step_s,
-                                         interpret=interp)
-
-        return per_dt
-
-    # XLA: select the coarse_plan layout out of the dense coarse planes
-    from .pallas_smat import coarse_plan
-
-    plan = coarse_plan(qrow0, lvl, hp0, wp0, h_l, w_l, ps, w_s, cfg.step_s)
-    rowpad, ncpad = plan["rowpad"], plan["ncpad"]
-    flat_sel = jnp.asarray(plan["sel"].reshape(-1))
-    hp_l, wp_l = h_l - ps + 1, w_l - ps + 1
-    per_dt_full = _level_dense(video_lvl, cfg.replace(dense_impl="xla"))
-
-    def per_dt(dt):
-        d_all = per_dt_full(dt)                    # (ws2, F, H', W')
-        d2 = d_all.reshape(w_s * w_s, f_cnt * hp_l * wp_l)
-        sel = jnp.take(d2, flat_sel, axis=1)
-        return jnp.transpose(
-            sel.reshape(w_s * w_s, f_cnt, rowpad, ncpad), (1, 0, 2, 3))
-
-    return per_dt
+    bf16 planes (cfg.search_bf16): the cast fuses into the layout
+    transpose, so the transpose write and the row take move half the
+    bytes; values upcast to f32 right after the take."""
+    ws2 = cfg.w_s * cfg.w_s
+    if sel is None:
+        fn = _level_dense(video, cfg)
+        t_len, _, h, w = video.shape
+        pos = (t_len - cfg.pt + 1) * (h - cfg.ps + 1) * (w - cfg.ps + 1)
+        return (lambda dt: jnp.transpose(fn(dt).astype(pdty),
+                                         (1, 2, 3, 0)).reshape(pos, ws2),
+                pos)
+    fn = _level_dense(video, cfg, sel.reshape(-1))
+    return (lambda dt: fn(dt).astype(pdty).T), int(sel.size)
 
 
 def _site_rows(sites, scale, hp, wp, h_lvl, w_lvl, ps, half):
@@ -297,6 +153,77 @@ def _site_rows(sites, scale, hp, wp, h_lvl, w_lvl, ps, half):
     return t * (hp * wp) + y * wp + x
 
 
+def _coarse_levels(videos, cfg: StageConfig, qrow0, sites, hp0: int,
+                   wp0: int, pdty):
+    """[(per_dt, rows, pos)] of the strided coarse needle levels: the
+    per-phase ``coarse_plan`` layout of each full-frame pyramid level,
+    addressed by full-res lattice ``sites`` in global coordinates."""
+    out = []
+    for lvl, v_l in enumerate(videos, 1):
+        plan = coarse_plan(qrow0, lvl, hp0, wp0, v_l.shape[2], v_l.shape[3],
+                           cfg.ps, cfg.w_s, cfg.step_s)
+        fn, pos = _level(v_l, cfg, pdty, jnp.asarray(plan["sel"]))
+        out.append((fn, site_rows_coarse(sites, plan), pos))
+    return out
+
+
+def _level_parts(fn, rows, pos, dt_lo, dt_hi, cfg: StageConfig, norm):
+    """[per-dt (S, ws2)] normalized contributions of one pyramid level.
+
+    CHUNKED ONE-TAKE: the dt planes are stacked along the candidate axis
+    and each site's row is gathered once per chunk instead of once per dt;
+    the chunk size keeps one stacked chunk under ``_CHUNK_BYTES``.
+    Per-element arithmetic is identical to the per-dt formulation."""
+    ws2 = cfg.w_s * cfg.w_s
+    nbytes = 2 if cfg.search_bf16 else 4
+    q = max(1, min(dt_hi - dt_lo + 1,
+                   _CHUNK_BYTES // max(pos * ws2 * nbytes, 1)))
+    parts = []
+    for c0 in range(dt_lo, dt_hi + 1, q):
+        dts_c = list(range(c0, min(c0 + q, dt_hi + 1)))
+        flat = jnp.concatenate([fn(dt) for dt in dts_c], axis=1)
+        got = jnp.take(flat, rows, axis=0).astype(jnp.float32)
+        got = got / norm
+        parts.extend(got[:, i * ws2:(i + 1) * ws2]
+                     for i in range(len(dts_c)))
+    return parts
+
+
+def _masked_planes(levels, ts, oob, t_len, dt_lo, dt_hi, cfg: StageConfig,
+                   norm):
+    """Per-dt (S, ws2) candidate values summed over pyramid levels, offset
+    and +inf-masked (temporally invalid frames, optional ``oob``)."""
+    lvl_parts = [_level_parts(fn, rows, pos, dt_lo, dt_hi, cfg, norm)
+                 for fn, rows, pos in levels]
+    all_vals = []
+    for di, dt in enumerate(range(dt_lo, dt_hi + 1)):
+        cand = lvl_parts[0][di]
+        for lp in lvl_parts[1:]:
+            cand = cand + lp[di]
+        f = ts + dt
+        valid = (f >= 0) & (f <= t_len - cfg.pt)
+        cand = (cand - cfg.offset
+                + jnp.where(valid, 0.0, jnp.inf)[:, None])
+        if oob is not None:
+            cand = cand + oob
+        all_vals.append(cand)
+    return all_vals
+
+
+def _decode(vals, sel, ts, ys, xs, dt_lo, t_len, chw, w, cfg: StageConfig):
+    """Top-K positions -> flat candidate indices (-1 where masked)."""
+    ws2 = cfg.w_s * cfg.w_s
+    half = (cfg.w_s - 1) // 2
+    dt_i = sel // ws2 + dt_lo                               # (S, K)
+    rem = sel % ws2
+    fcl = jnp.clip(ts[:, None] + dt_i, 0, t_len - cfg.pt)
+    y = ys[:, None] - half + rem // cfg.w_s
+    x = xs[:, None] - half + rem % cfg.w_s
+    inds = fcl * chw + y * w + x
+    inds = jnp.where(jnp.isinf(vals), -1, inds.astype(jnp.int32))
+    return vals, _apply_tau(vals, inds, cfg)
+
+
 def topk_planes(all_vals, k: int):
     """Exact top-K over the concatenation of per-dt candidate planes via a
     TWO-STAGE select: per-plane ``top_k`` of the (S, ws2) planes, then one
@@ -308,16 +235,9 @@ def topk_planes(all_vals, k: int):
     order: ``lax.top_k`` lists equal values earliest-position-first, stage
     1 therefore emits each plane's ties in position order, and stage 2's
     plane-major input preserves (plane, position) = flat-position order —
-    exactly the one-shot enumeration.  (Pinned on-device by
-    scripts/bench_topk_floor.py: values bit-equal, index agreement 1.0.)
-
-    MEASURED (v5e-1, scripts/bench_topk_floor.py, (26000, 21*225)->100,
-    dispatch-amortized): direct 131.9 ms, two-stage 93.7 ms (f32) /
-    91.9 ms (bf16) — 1.41x, both far above the 0.86 ms one-read roofline,
-    so the one-shot sort is COMPUTE-bound, not bandwidth-bound, and
-    narrowing the final sort from n_dt*ws2 to n_dt*k lanes is the win.
-    Closes the round-4 judge item #7 question with a harvested win rather
-    than a floor note."""
+    exactly the one-shot enumeration.  Narrowing the final sort from
+    n_dt*ws2 to n_dt*k candidates is what makes it cheaper than the
+    one-shot sort (its GPU time is not measured yet)."""
     n_p = len(all_vals)
     s_cnt, ws2 = all_vals[0].shape
     mv = jnp.concatenate(all_vals, axis=1)
@@ -343,10 +263,9 @@ def exec_search_dense_tile(tile, sites_local, gy, cfg: StageConfig, qrow0,
                            base_row, hp_g: int,
                            coarse_videos=()) -> Tuple[jnp.ndarray,
                                                       jnp.ndarray]:
-    """PRODUCTION zero-flow top-K search on a halo'd strip tile — the
-    strided-query smat kernel + chunked one-take, running inside
-    ``shard_map`` (round-4 judge item #1a: the sharded spatial path must
-    ride the same kernels the single-chip pipeline does).
+    """Zero-flow top-K search on a halo'd strip tile — the strided-query
+    search + chunked one-take, running inside ``shard_map`` (the sharded
+    spatial path rides the same search the single-device pipeline does).
 
     tile:        (T, C, Hs + 2*halo, W) local video tile (YUV).
     sites_local: (S, 3) lattice sites in TILE coordinates.
@@ -356,94 +275,41 @@ def exec_search_dense_tile(tile, sites_local, gy, cfg: StageConfig, qrow0,
                  (= strip_index*strip_h - halo; negative on strip 0).
     hp_g:        static global H - ps + 1 (of the padded global frame).
     coarse_videos: all_gather'ed FULL-frame needle pyramid levels; coarse
-      distances ride the unchanged GLOBAL coarse_plan kernel (global
-      coordinates apply — coarse frames are not sharded).
+      distances use the GLOBAL coarse_plan layout (global coordinates
+      apply — coarse frames are not sharded).
 
-    Level-0 distances are computed only at lattice rows/columns via the
-    selection-matmul kernel with a DEVICE-BUILT row selection
-    (ops/pallas_smat.build_row_select_tile): the tile's lattice rows depend
-    on the traced per-device ``base_row``, so Sy and the site->slot mapping
-    are data while every layout shape stays static and device-uniform.
-    Candidates outside the GLOBAL frame are masked +inf (the halo path's
-    border_mode='mask' semantics).  Returns (vals, inds) with inds in TILE
-    flat coordinates (t*(C*Ht*W) + y_tile*W + x).
+    Level-0 distances are kept only at lattice slots selected by a
+    DEVICE-BUILT index (ops/lattice_layout.tile_sel_indices): the tile's
+    lattice rows depend on the traced per-device ``base_row``, so the
+    selection and the site->slot mapping are data while every layout shape
+    stays static and device-uniform.  Candidates outside the GLOBAL frame
+    are masked +inf (the halo path's border_mode='mask' semantics).
+    Returns (vals, inds) with inds in TILE flat coordinates
+    (t*(C*Ht*W) + y_tile*W + x).
     """
-    from .pallas_smat import (build_row_select_tile, coarse_plan,
-                              site_rows_coarse, site_rows_smat_tile,
-                              smat_distances_dt_tile, tile_sel_indices,
-                              tile_smat_layout)
-    from .search import _apply_tau, eff_dt_range
-
     t_len, c_full, h_t, w = tile.shape
-    k = cfg.npatches
-    ps, pt, w_s, step = cfg.ps, cfg.pt, cfg.w_s, cfg.step_s
+    ps, w_s, step = cfg.ps, cfg.w_s, cfg.step_s
     half = (w_s - 1) // 2
     s_cnt = sites_local.shape[0]
     norm = float(cfg.pt * cfg.dist_chnls * cfg.ps * cfg.ps) * 255.0 ** 2
     hp_t, wp = h_t - ps + 1, w - ps + 1
-    f_cnt = t_len - pt + 1
-    chw = c_full * h_t * w
     ts = sites_local[:, 0]
     ys = sites_local[:, 1]
     xs = sites_local[:, 2]
     dt_lo, dt_hi = eff_dt_range(cfg, t_len)
+    pdty = jnp.bfloat16 if cfg.search_bf16 else jnp.float32
 
-    use_pallas = (cfg.dense_impl == "pallas"
-                  or (cfg.dense_impl == "auto"
-                      and jax.default_backend() == "tpu"))
+    # ---- level 0: tile lattice (traced selection) ----
+    sel0 = tile_sel_indices(qrow0, base_row, hp_t, hp_g, wp, step)
+    fn0, pos0 = _level(tile, cfg, pdty, sel0)
+    rows0 = site_rows_smat_tile(sites_local, gy, qrow0, step, hp_t, hp_g, wp)
+    levels = [(fn0, rows0, pos0)]
 
-    # ---- level 0: tile smat (traced row selection) ----
-    gmax, _, rowpad, _, ncpad = tile_smat_layout(hp_t, wp, step)
-    level_fns = []          # [(per_dt -> (F, ws2, RT, NC), rows, pos)]
-    if use_pallas:
-        interp = jax.default_backend() != "tpu"
-        vc = tile[:, :cfg.dist_chnls]
-
-        def stack_pt(x):
-            return jnp.concatenate(
-                [x[f:f + f_cnt] for f in range(pt)], axis=1)
-
-        vq = stack_pt(vc)
-        hpad = -(-h_t // 128) * 128
-        sy = build_row_select_tile(qrow0, base_row, hp_t, hp_g, step, ps,
-                                   hpad, gmax, rowpad)
-
-        def per_dt0(dt, _vc=vc, _vq=vq, _sy=sy):
-            vd = stack_pt(jnp.roll(_vc, -dt, axis=0))
-            return smat_distances_dt_tile(_vq, vd, _sy, ps, w_s, step,
-                                          gmax, rowpad, ncpad,
-                                          interpret=interp)
-    else:
-        # XLA fallback: traced selection out of the dense tile planes
-        # (bit-equal values; only the layout changes)
-        sel = tile_sel_indices(qrow0, base_row, hp_t, hp_g, wp, step,
-                               gmax, rowpad, ncpad)
-        flat_sel = sel.reshape(-1)
-        per_dt_full = _level_dense(tile, cfg.replace(dense_impl="xla"))
-
-        def per_dt0(dt, _fs=flat_sel, _fn=per_dt_full):
-            d_all = _fn(dt)                        # (ws2, F, H', W')
-            d2 = d_all.reshape(w_s * w_s, f_cnt * hp_t * wp)
-            got = jnp.take(d2, _fs, axis=1)
-            return jnp.transpose(
-                got.reshape(w_s * w_s, f_cnt, rowpad, ncpad), (1, 0, 2, 3))
-
-    rows0 = site_rows_smat_tile(sites_local, gy, qrow0, step, hp_g,
-                                gmax, rowpad, ncpad)
-    level_fns.append((per_dt0, rows0, f_cnt * rowpad * ncpad))
-
-    # ---- coarse needle levels: GLOBAL frames, global plan (unchanged
-    # production kernel; the pooled pyramid is replicated, not sharded) ----
+    # ---- coarse needle levels: GLOBAL frames, global plan (the pooled
+    # pyramid is replicated, not sharded) ----
     sites_g = jnp.stack([ts, gy, xs], axis=1)
-    for lvl1, v_l in enumerate(coarse_videos):
-        lvl = lvl1 + 1
-        per_dt_l = _level_dense_smat_coarse(v_l, cfg, qrow0, lvl, hp_g, wp)
-        plan = coarse_plan(qrow0, lvl, hp_g, wp, v_l.shape[2], v_l.shape[3],
-                           ps, w_s, step)
-        rows_l = site_rows_coarse(sites_g, plan, plan["rowpad"],
-                                  plan["ncpad"])
-        level_fns.append((per_dt_l, rows_l,
-                          f_cnt * plan["rowpad"] * plan["ncpad"]))
+    levels += _coarse_levels(coarse_videos, cfg, qrow0, sites_g, hp_g, wp,
+                             pdty)
 
     # ---- OOB mask: GLOBAL frame bounds in tile coordinates (traced) ----
     dgrid = jnp.arange(w_s, dtype=jnp.int32)
@@ -452,76 +318,38 @@ def exec_search_dense_tile(tile, sites_local, gy, cfg: StageConfig, qrow0,
     bad = ((cy_g < 0) | (cy_g > hp_g - 1) | (cx < 0) | (cx > wp - 1))
     oob = jnp.where(bad, jnp.inf, 0.0).reshape(s_cnt, w_s * w_s)
 
-    # ---- chunked one-take per level (same structure and bit-identical
-    # add order as exec_search_dense's exact path) ----
-    pdty = jnp.bfloat16 if cfg.search_bf16 else jnp.float32
-    ws2 = w_s * w_s
-    n_dt_eff = dt_hi - dt_lo + 1
-
-    def level_parts(fn, rows_l, pos):
-        nbytes = 2 if cfg.search_bf16 else 4
-        q = max(1, min(n_dt_eff, int(3e9) // max(pos * ws2 * nbytes, 1)))
-        parts = []
-        for c0 in range(dt_lo, dt_hi + 1, q):
-            dts_c = list(range(c0, min(c0 + q, dt_hi + 1)))
-            flat = jnp.concatenate(
-                [jnp.transpose(fn(dt).astype(pdty),
-                               (0, 2, 3, 1)).reshape(pos, ws2)
-                 for dt in dts_c], axis=1)
-            got = jnp.take(flat, rows_l, axis=0).astype(jnp.float32)
-            got = got / norm
-            parts.extend(got[:, i * ws2:(i + 1) * ws2]
-                         for i in range(len(dts_c)))
-        return parts
-
-    lvl_parts = [level_parts(fn, rows_l, pos)
-                 for fn, rows_l, pos in level_fns]
-    all_vals = []
-    for di, dt in enumerate(range(dt_lo, dt_hi + 1)):
-        cand = lvl_parts[0][di]
-        for lp in lvl_parts[1:]:
-            cand = cand + lp[di]
-        f = ts + dt
-        valid = (f >= 0) & (f <= t_len - pt)
-        cand = cand - cfg.offset + jnp.where(valid, 0.0, jnp.inf)[:, None]
-        cand = cand + oob
-        all_vals.append(cand)
-    vals, sel_k = topk_planes(all_vals, k)
-
-    dt_i = sel_k // ws2 + dt_lo
-    rem = sel_k % ws2
-    fcl = jnp.clip(ts[:, None] + dt_i, 0, t_len - pt)
-    y = ys[:, None] - half + rem // w_s
-    x = xs[:, None] - half + rem % w_s
-    inds = fcl * chw + y * w + x
-    inds = jnp.where(jnp.isinf(vals), -1, inds.astype(jnp.int32))
-    return vals, _apply_tau(vals, inds, cfg)
+    all_vals = _masked_planes(levels, ts, oob, t_len, dt_lo, dt_hi, cfg,
+                              norm)
+    vals, sel_k = topk_planes(all_vals, cfg.npatches)
+    return _decode(vals, sel_k, ts, ys, xs, dt_lo, t_len, c_full * h_t * w,
+                   w, cfg)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "qrow0"))
 def exec_search_dense(video: jnp.ndarray, sites: jnp.ndarray,
                       cfg: StageConfig, qrow0=None
                       ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Zero-flow top-K search over INTERIOR sites (see ops/mask.interior_split).
+    """Zero-flow top-K search over INTERIOR sites (ops/mask.interior_split).
 
     Args/returns match ops/search.exec_search (flows implicitly zero).
 
     ``qrow0``: optional static tuple of per-frame lattice phase rows
     (length t-pt+1).  When given, EVERY site must lie on the coverage
-    lattice (phase rows plus the always-on border rows) and the level-0
-    distances are computed ONLY at lattice rows (strided-query kernel;
-    ~step_s-fold less box-sum work and output traffic than the dense
-    all-rows path).  ``None`` (arbitrary sites, e.g. compat mode / tests)
-    keeps the all-rows path.
+    lattice (phase rows plus the always-on border rows) and the candidate
+    distances of every level are kept only at lattice positions (~step_s^2
+    fewer stored values than the all-pixels planes, bit-equal values).
+    ``None`` (arbitrary sites, e.g. compat mode / tests) keeps the
+    all-pixels path.
     """
     t_len, c_full, h, w = video.shape
     k = cfg.npatches
-    ps, pt, w_s, n_dt = cfg.ps, cfg.pt, cfg.w_s, cfg.n_dt
+    ps, w_s = cfg.ps, cfg.w_s
     half = (w_s - 1) // 2
     s_cnt = sites.shape[0]
     norm = float(cfg.pt * cfg.dist_chnls * cfg.ps * cfg.ps) * 255.0 ** 2
     if cfg.dense_rows == "full":
         qrow0 = None
+    pdty = jnp.bfloat16 if cfg.search_bf16 else jnp.float32
 
     # pyramid levels (needle) — interior_split guarantees validity per level
     videos = [video]
@@ -533,53 +361,38 @@ def exec_search_dense(video: jnp.ndarray, sites: jnp.ndarray,
                 break
             videos.append(_avg_pool2(videos[-1]))
 
-    per_dt_fns = [_level_dense(v, cfg) for v in videos]
-    smat_rows = {}          # lvl -> (site rows, rowpad, ncpad)
+    levels = []             # [(per_dt -> (pos, ws2), site rows, pos)]
     if qrow0 is not None:
-        # strided-query paths: level 0 always; every coarse level via the
-        # per-phase coarse_plan (no stride-divisibility requirement —
-        # the per-block column slot lists absorb non-uniform scaled
-        # lattices, ops/pallas_smat.coarse_plan)
-        from .pallas_smat import (coarse_plan, site_rows_coarse,
-                                  site_rows_smat, smat_layout)
-
-        per_dt_fns[0] = _level_dense_smat(video, cfg, qrow0)
+        # strided-query layouts: level 0 and every coarse level (the
+        # per-phase coarse_plan needs no stride divisibility)
         hp0, wp0 = h - ps + 1, w - ps + 1
-        _, _, rowpad0, _, ncpad0 = smat_layout(hp0, wp0, cfg.step_s)
-        smat_rows[0] = (site_rows_smat(sites, qrow0, cfg.step_s, hp0, wp0,
-                                       ncpad0, rowpad0), rowpad0, ncpad0)
-        for lvl in range(1, len(videos)):
-            v_l = videos[lvl]
-            per_dt_fns[lvl] = _level_dense_smat_coarse(
-                v_l, cfg, qrow0, lvl, hp0, wp0)
-            plan = coarse_plan(qrow0, lvl, hp0, wp0, v_l.shape[2],
-                               v_l.shape[3], ps, w_s, cfg.step_s)
-            smat_rows[lvl] = (
-                site_rows_coarse(sites, plan, plan["rowpad"],
-                                 plan["ncpad"]),
-                plan["rowpad"], plan["ncpad"])
+        sel0 = smat_sel_indices(qrow0, hp0, wp0, cfg.step_s)
+        fn0, pos0 = _level(video, cfg, pdty, jnp.asarray(sel0))
+        levels.append((fn0, site_rows_smat(sites, qrow0, cfg.step_s, hp0,
+                                           wp0), pos0))
+        levels += _coarse_levels(videos[1:], cfg, qrow0, sites, hp0, wp0,
+                                 pdty)
+    else:
+        for lvl, v in enumerate(videos):
+            lh, lw = v.shape[2], v.shape[3]
+            fn, pos = _level(v, cfg, pdty)
+            levels.append((fn, _site_rows(sites, 1 << lvl, lh - ps + 1,
+                                          lw - ps + 1, lh, lw, ps, half),
+                           pos))
 
     ts = sites[:, 0]
     ys = sites[:, 1]
     xs = sites[:, 2]
-    chw = c_full * h * w
-
-    # static clamp: dt is only ever valid when some site has 0 <= t+dt <=
-    # T-pt, i.e. |dt| <= T-pt — clips with fewer frames than the temporal
-    # window skip the all-masked planes entirely (enumeration order of the
-    # remaining planes is unchanged, so tie-breaks are identical)
-    dt_lo = max(-cfg.nwt_b, -(t_len - pt))
-    dt_hi = min(cfg.nwt_f, t_len - pt)
+    dt_lo, dt_hi = eff_dt_range(cfg, t_len)
 
     # border_mode == "mask": sites may sit near the frame border; their
     # out-of-bounds candidates read zero-padded garbage from the dense
     # buffers and are masked +inf here (the top-K then selects from the
     # fewer in-bounds candidates — a documented delta vs the C++ sliding
-    # window, which keeps w_s^2 candidates by shifting the window inward)
-    # masking is ADDITIVE (+inf) rather than a per-plane select: pred masks
-    # forced per-dt relayouts + select_n ops in the lowering (traced ~0.05 s
-    # per pass); x + inf == inf and x + 0.0 == x exactly, so the additive
-    # form is bitwise identical on the finite candidates
+    # window, which keeps w_s^2 candidates by shifting the window inward).
+    # Masking is ADDITIVE (+inf) rather than a per-plane select: x + inf ==
+    # inf and x + 0.0 == x exactly, so the additive form is bitwise
+    # identical on the finite candidates and lowers to one fused add.
     oob = None
     if cfg.border_mode == "mask":
         dgrid = jnp.arange(w_s, dtype=jnp.int32)
@@ -589,58 +402,28 @@ def exec_search_dense(video: jnp.ndarray, sites: jnp.ndarray,
                | (cx_all < 0) | (cx_all > w - ps))
         oob = jnp.where(bad, jnp.inf, 0.0).reshape(s_cnt, w_s * w_s)
 
-    # bf16 candidate planes (cfg.search_bf16): the cast fuses INTO the
-    # layout transpose, so the transpose write + the row take move half the
-    # bytes; values upcast to f32 right after the take (the offset / mask /
-    # top-K math stays f32)
-    pdty = jnp.bfloat16 if cfg.search_bf16 else jnp.float32
-
-    def plane(dt):
-        """Per-dt candidate distances (S, ws2), +inf-masked."""
-        cand = jnp.zeros((s_cnt, w_s * w_s), jnp.float32)
-        for lvl, (v, fn) in enumerate(zip(videos, per_dt_fns)):
-            if lvl in smat_rows:
-                rows_l = smat_rows[lvl][0]
-                buf = fn(dt)                               # (F, ws2, RT, NC)
-                flat = jnp.transpose(buf.astype(pdty),
-                                     (0, 2, 3, 1)).reshape(-1, w_s * w_s)
-                got = jnp.take(flat, rows_l, axis=0).astype(jnp.float32)
-                cand = cand + got / norm
-                continue
-            d_all = fn(dt)                                  # (ws2, F, H', W')
-            lh, lw = v.shape[2], v.shape[3]
-            hp, wp = lh - ps + 1, lw - ps + 1
-            rows = _site_rows(sites, 1 << lvl, hp, wp, lh, lw, ps, half)
-            # transpose so each site's 225 candidates are one contiguous row
-            flat = jnp.transpose(d_all.astype(pdty),
-                                 (1, 2, 3, 0)).reshape(-1, w_s * w_s)
-            got = jnp.take(flat, rows, axis=0).astype(jnp.float32)
-            cand = cand + got / norm
-
-        f = ts + dt
-        valid = (f >= 0) & (f <= t_len - pt)                # (S,)
-        cand = cand - cfg.offset + jnp.where(valid, 0.0, jnp.inf)[:, None]
-        if oob is not None:
-            cand = cand + oob
-        return cand
-
     ws2 = w_s * w_s
     if cfg.topk == "stream" and ws2 >= k:
-        # STREAMING per-dt merge (the in-kernel top-K analog of SURVEY
-        # §2.2 N1): a running (S, K) top-K merges with each dt plane, so
-        # the peak candidate buffer is O(S*(K+ws2)) instead of
-        # O(S*n_dt*ws2) (~14x smaller at the iphone preset: ~0.5 GB vs
-        # ~7 GB at 480p stride 3).  Bit-equal to the one-shot top_k: for
-        # equal values top_k keeps the earliest position, and running
-        # entries (earlier dt, by induction) precede the new plane's
-        # enumeration-ordered candidates — exactly the one-shot tie order
-        # (pinned by tests/test_search_dense.py).
-        #
-        # MEASURED (v5e-1, 240p stride 3): 2-4.5x SLOWER than one-shot
-        # (21 dependent top_k calls vs one wide one), so this is the
-        # LOW-MEMORY mode for long/large clips where the one-shot
-        # candidate buffer would not fit HBM (e.g. the 1080p 100-frame
-        # scale-out target), not the speed default.
+        # STREAMING per-dt merge: a running (S, K) top-K merges with each
+        # dt plane, so the peak candidate buffer is O(S*(K+ws2)) instead of
+        # O(S*n_dt*ws2) (~14x smaller at the iphone preset).  Bit-equal to
+        # the one-shot top_k: for equal values top_k keeps the earliest
+        # position, and running entries (earlier dt, by induction) precede
+        # the new plane's enumeration-ordered candidates — exactly the
+        # one-shot tie order (pinned by tests/test_search_dense.py).  It
+        # runs n_dt dependent top_k calls instead of one wide one, so it
+        # is the LOW-MEMORY mode for long/large clips, not the default.
+        def plane(dt):
+            cand = jnp.zeros((s_cnt, ws2), jnp.float32)
+            for fn, rows, _ in levels:
+                got = jnp.take(fn(dt), rows, axis=0).astype(jnp.float32)
+                cand = cand + got / norm
+            f = ts + dt
+            valid = (f >= 0) & (f <= t_len - cfg.pt)
+            cand = cand - cfg.offset + jnp.where(valid, 0.0,
+                                                 jnp.inf)[:, None]
+            return cand if oob is None else cand + oob
+
         run_v = run_s = None
         for di, dt in enumerate(range(dt_lo, dt_hi + 1)):
             cand = plane(dt)
@@ -657,83 +440,21 @@ def exec_search_dense(video: jnp.ndarray, sites: jnp.ndarray,
                 run_s = jnp.take_along_axis(mc, sel_p, axis=1)
         vals, sel = run_v, run_s
     else:
-        # CHUNKED ONE-TAKE per level: stack dt planes along lanes and
-        # row-gather each site once per chunk instead of once per dt —
-        # XLA's TPU take is ~per-row cost, so row COUNT is the bill
-        # (level 0: 1 take instead of n_dt; coarse levels: chunk size set
-        # by a stacked-buffer memory gate).  Per-element arithmetic and
-        # add order are bit-identical to the per-dt formulation.
-        n_dt_eff = dt_hi - dt_lo + 1
-
-        def level_parts(lvl, v, fn):
-            """[per-dt (S, ws2)] contributions of one pyramid level."""
-            lh, lw = v.shape[2], v.shape[3]
-            hp_l, wp_l = lh - ps + 1, lw - ps + 1
-            if lvl in smat_rows:
-                rows_l, rp_l, ncp_l = smat_rows[lvl]
-                pos = (t_len - pt + 1) * rp_l * ncp_l
-
-                def tobuf(b):                      # (F, ws2, RT, NC)
-                    return jnp.transpose(b.astype(pdty),
-                                         (0, 2, 3, 1)).reshape(pos, ws2)
-            else:
-                rows_l = _site_rows(sites, 1 << lvl, hp_l, wp_l, lh, lw,
-                                    ps, half)
-                pos = (t_len - pt + 1) * hp_l * wp_l
-
-                def tobuf(b):                      # (ws2, F, H', W')
-                    return jnp.transpose(b.astype(pdty),
-                                         (1, 2, 3, 0)).reshape(pos, ws2)
-
-            nbytes = 2 if cfg.search_bf16 else 4
-            q = max(1, min(n_dt_eff, int(3e9) // max(pos * ws2 * nbytes, 1)))
-            parts = []
-            for c0 in range(dt_lo, dt_hi + 1, q):
-                dts_c = list(range(c0, min(c0 + q, dt_hi + 1)))
-                flat = jnp.concatenate([tobuf(fn(dt)) for dt in dts_c],
-                                       axis=1)
-                got = jnp.take(flat, rows_l, axis=0).astype(jnp.float32)
-                got = got / norm
-                parts.extend(got[:, i * ws2:(i + 1) * ws2]
-                             for i in range(len(dts_c)))
-            return parts
-
-        lvl_parts = [level_parts(lvl, v, fn)
-                     for lvl, (v, fn) in enumerate(zip(videos, per_dt_fns))]
-        all_vals = []
-        for di, dt in enumerate(range(dt_lo, dt_hi + 1)):
-            cand = lvl_parts[0][di]
-            for lp in lvl_parts[1:]:
-                cand = cand + lp[di]
-            f = ts + dt
-            valid = (f >= 0) & (f <= t_len - pt)
-            cand = (cand - cfg.offset
-                    + jnp.where(valid, 0.0, jnp.inf)[:, None])
-            if oob is not None:
-                cand = cand + oob
-            all_vals.append(cand)
+        all_vals = _masked_planes(levels, ts, oob, t_len, dt_lo, dt_hi, cfg,
+                                  norm)
         # one-shot top-K over the full candidate axis (enumeration dt, dy,
         # dx — identical to the gather path, so ties break identically).
         # Candidate flat indices are DECODED from the selected positions
-        # instead of materializing an (S, n_dt*ws2) int32 array (saves
-        # ~2x 3.8 GB at 480p).
+        # instead of materializing an (S, n_dt*ws2) int32 array.
         if cfg.topk == "approx":
-            # TPU-optimized approximate top-k (deterministic); slight
-            # recall loss swaps the rare boundary candidate for a
-            # near-equal one
+            # lax.approx_max_k: where the backend has no approximate
+            # kernel XLA computes it exactly; otherwise slight recall loss
+            # swaps the rare boundary candidate for a near-equal one
             mv = jnp.concatenate(all_vals, axis=1)          # (S, n_dt*ws2)
             neg, sel = lax.approx_max_k(-mv, k, recall_target=0.98)
             vals = -neg
         else:
             vals, sel = topk_planes(all_vals, k)
 
-    dt_i = sel // ws2 + dt_lo                               # (S, K)
-    rem = sel % ws2
-    fcl = jnp.clip(ts[:, None] + dt_i, 0, t_len - pt)
-    y = ys[:, None] - half + rem // w_s
-    x = xs[:, None] - half + rem % w_s
-    inds = fcl * chw + y * w + x
-    inds = jnp.where(jnp.isinf(vals), -1, inds.astype(jnp.int32))
-    from .search import _apply_tau
-
-    return vals, _apply_tau(vals, inds, cfg)
+    return _decode(vals, sel, ts, ys, xs, dt_lo, t_len, c_full * h * w, w,
+                   cfg)

@@ -4,7 +4,7 @@ Motivation (SURVEY.md §7 hard part #2): the exact filter needs an
 eigendecomposition per patch group; both XLA's eigh and a batched Jacobi are
 ~100x off the 480p throughput target.  This module evaluates the SAME
 spectral transfer function with matrix *rationals* — batched vectorized
-Cholesky inverses (ops/linalg.py) + MXU matmuls — no eigenvectors, no
+Cholesky inverses (ops/linalg.py) + batched matmuls — no eigenvectors, no
 per-matrix serialization.
 
 Exact transfer function (reference deno/bayes_est.py:129-144, "clipped"):
@@ -20,7 +20,7 @@ same SPD matrix commute, so the factors compose spectrally):
               above, -> (l/tau_g)^{2m} below; m = gate_power)
 
 Conditioning: every inverse is either (A + tau_g I) / (A + r2 I) with
-kappa <= lmax/r2, or (b^2 + 1/4 I) with kappa <= 5 — safe in fp32 on TPU
+kappa <= lmax/r2, or (b^2 + 1/4 I) with kappa <= 5 — safe in fp32
 (the naive A^2-based gate has kappa ~ (lmax/tau)^2 ~ 1e7+ and NaNs out).
 Matrices are additionally normalized per group by s = tr(A)/n + s2 (the
 transfer function depends only on ratios, so this is exact).

@@ -1,4 +1,4 @@
-// C++ reference oracle for the TPU-native VNLB framework.
+// C++ reference oracle for the JAX VNLB framework.
 //
 // Role: the reference implementation relied on an *external* SWIG-wrapped
 // C++ package (svnlb) as its correctness oracle (reference
@@ -8,7 +8,7 @@
 // aggregation, color transform) with EXACTLY the semantics documented in
 // vnlb_tpu/ops/*.py, exposed through a C ABI for ctypes.
 //
-// It is used only by tests (oracle parity), never on the TPU path.
+// It is used only by tests (oracle parity), never on the device path.
 //
 // Build: g++ -O2 -shared -fPIC -o libvnlb_oracle.so vnlb_oracle.cpp
 

@@ -2,7 +2,7 @@
 
 SURVEY.md §2.3 PP: the reference runs its two passes strictly sequentially
 (reference lib/vnlb/impl.py:47-57 — pass 2 starts only after pass 1 finished
-the whole video).  On a multi-chip TPU host the passes can instead form a
+the whole video).  On a multi-device host the passes can instead form a
 software pipeline over temporal chunks: device 0 runs pass 1 (basic) on
 chunk j while device 1 runs pass 2 (final) on chunk j-L, overlapping the
 two passes' compute almost completely for long videos.
@@ -62,8 +62,8 @@ def denoise_pipelined(noisy, sigma: float, chunk: int = 12, flows=None,
     ``meshes``: optional (mesh1, mesh2) pair of DISJOINT device meshes —
     the PP x SP composition: each pass runs halo-SP sharded over ITS mesh
     (parallel/halo.proc_nl_halo) while the two passes pipeline over
-    temporal chunks.  This is the BASELINE v5e-8 scale-out shape: 8 chips
-    = 2 pipeline stages x 4 H-strips.  Overrides ``devices``.
+    temporal chunks (e.g. 8 devices = 2 pipeline stages x 4 H-strips).
+    Overrides ``devices``.
 
     Returns (deno, basic, seconds) as host numpy arrays; equals
     ``denoise_streaming(noisy, sigma, chunk=chunk, ...)`` exactly

@@ -1,14 +1,14 @@
 """Multi-chip execution over a ``jax.sharding.Mesh``.
 
 The reference is strictly single-GPU (SURVEY.md §2.3); this module supplies
-the scale-out axes the TPU build adds:
+the scale-out axes this build adds:
 
 * ``proc_nl_sharded`` — **site parallelism** (the DP axis): the coverage
   lattice's site batches are sharded across the mesh, the video is
   replicated, and every chip accumulates a partial (deno, weights) pair that
   is ``psum``-reduced over ICI before normalization.  Site groups are
   independent, so this is an exact (bitwise-deterministic per mesh size)
-  decomposition — the TPU analog of the reference's "pixel-site batch"
+  decomposition — the multi-device analog of the reference's "pixel-site batch"
   parallelism (search/search.py:38-64), scaled across chips.
 * ``denoise_sharded`` — two-pass driver on top of it.
 
@@ -53,14 +53,13 @@ def _proc_nl_sharded_jit(noisy, basic, clean, fflow, bflow, site_batches,
 
     def shard_fn(n_yuv, b_yuv, s_yuv, ff, bf, sb, vb):
         # accumulate folds per-device partial images; fold is linear, so the
-        # psum over ICI gives the exact single-device accumulators.  The
-        # dense shared-candidate search fast path is per-device (its
-        # candidate distances depend on the replicated video only), so each
-        # chip runs it on its shard of the interior sites — including the
-        # PRODUCTION strided-query smat kernel (``qrow0``; every shard's
-        # sites are global lattice sites, so the global phase tuple applies
-        # unchanged — round-4 judge item: the sharded paths must run the
-        # same kernels the single-chip pipeline does).
+        # psum gives the exact single-device accumulators.  The dense
+        # shared-candidate search fast path is per-device (its candidate
+        # distances depend on the replicated video only), so each device
+        # runs it on its shard of the interior sites — including the
+        # production strided-query search (``qrow0``; every shard's sites
+        # are global lattice sites, so the global phase tuple applies
+        # unchanged and the sharded path runs the single-device search).
         deno_img, wts_img = accumulate(n_yuv, b_yuv, s_yuv, ff, bf, sb, vb,
                                        cfg, shape, axis_name="sites",
                                        n_dense_batches=n_dense_batches,

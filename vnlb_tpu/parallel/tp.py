@@ -11,7 +11,7 @@ caller asks for it.
 
 This axis composes with site-DP (parallel/tiled.py): DP shards SITES before
 the search; TP shards the filter batch of one site batch.  The practical
-use is groups >> VMEM single-batch filtering (e.g. offline re-filtering of
+use is groups >> one device's single-batch filtering (e.g. offline re-filtering of
 precomputed groups at K=100, p=147), where the full (G, K, p) operand set
 exceeds one chip.
 """

@@ -1,12 +1,14 @@
 """One denoising pass (``proc_nl``), fully jitted.
 
 Reference: lib/vnlb/proc_nl.py:38-141 — a Python batch loop with host syncs,
-random site draws, and a CPU aggregation detour.  TPU-native redesign
-(SURVEY.md §7): the entire pass is ONE jitted function; the batch loop is a
-``lax.scan`` over fixed-size site batches enumerated from the coverage
-lattice; search, gather, Bayes filtering and scatter-add aggregation all stay
-on device with static shapes.  The function is deterministic: fixed inputs
-give bitwise-identical outputs.
+random site draws, and a CPU aggregation detour.  Redesign (SURVEY.md §7):
+the entire pass is ONE jitted function; the batch loop is a ``lax.scan``
+over fixed-size site batches enumerated from the coverage lattice; search,
+gather, Bayes filtering and scatter-add aggregation all stay on device with
+static shapes.  Sites and their order are fixed; on the GPU the f32
+scatter-add combines duplicate rows with atomics in no fixed order, so two
+runs differ in the last bits (ROADMAP B2); on the CPU they are bitwise
+identical.
 
 ``accumulate`` is the shared core (scan over site batches -> accumulators);
 the single-device ``proc_nl`` and the multi-chip ``parallel.tiled`` paths both
@@ -79,7 +81,7 @@ def accumulate(noisy_yuv, basic_yuv, srch_yuv, fflow, bflow, site_batches,
     """Scan all site batches; returns image-space (deno (T,C,H,W),
     weights (T,H,W)) accumulators (un-normalized).
 
-    TPU-first data layout: the videos are unfolded once into patch columns
+    Data layout: the videos are unfolded once into patch columns
     (ops/gather.im2col), so every patch-group gather is a contiguous row
     gather and aggregation is a row scatter into column space, folded
     densely back to image space once at the end (ops/agg.fold).  The search
@@ -89,7 +91,7 @@ def accumulate(noisy_yuv, basic_yuv, srch_yuv, fflow, bflow, site_batches,
     ``axis_name`` marks the accumulators as device-varying when running
     inside ``shard_map`` (scan carry typing).
 
-    ``prof_upto`` (PROFILING ONLY, scripts/profile_marginal.py): truncate
+    ``prof_upto`` (PROFILING ONLY): truncate
     the pass after the named phase and return a forcing scalar instead of
     the accumulators, so jitted-prefix differences measure true in-context
     marginal phase costs on the production graph.  Must be threaded as a
@@ -127,13 +129,13 @@ def accumulate(noisy_yuv, basic_yuv, srch_yuv, fflow, bflow, site_batches,
             # (gather.arena_conv; bitwise equal to unfold + cols_fuse_pt)
             return gather.arena_conv([img_yuv], cfg.ps, cfg.pt,
                                      bf16=cfg.cols_bf16)
-        # one-hot-conv unfold (bitwise equal to gather.im2col, one MXU op)
+        # one-hot-conv unfold (bitwise equal to gather.im2col, one conv)
         cols = gather.im2col_conv(img_yuv, cfg.ps, bf16=cfg.cols_bf16)
         return cols.reshape(t_len * hp * wp, d)
 
     if join_arenas:
         # ONE conv emits the joined c-major pt-fused arena — no roll/concat
-        # relayout graph (scripts/exp_arena.py)
+        # relayout graph
         cols_join = gather.arena_conv([noisy_yuv, basic_yuv], cfg.ps, cfg.pt,
                                       bf16=cfg.cols_bf16)
         cols_noisy = cols_basic = None
@@ -152,20 +154,18 @@ def accumulate(noisy_yuv, basic_yuv, srch_yuv, fflow, bflow, site_batches,
     def make_acc0():
         acc0 = jnp.zeros((t_len * hp * wp, cfg.pt * d + 1), jnp.float32)
         if axis_name is not None:
-            pcast = getattr(jax.lax, "pcast", None)
-            if pcast is not None:
-                acc0 = pcast(acc0, axis_name, to="varying")
-            else:
-                acc0 = jax.lax.pvary(acc0, axis_name)
+            acc0 = jax.lax.pcast(acc0, axis_name, to="varying")
         return acc0
 
-    # ONE deferred scatter beats per-batch scatters in the scan: measured
-    # 46 ns/row one-shot vs 140-260 ns/row for the 8k-row in-scan scatters
-    # (scripts/exp_scatter.py; XLA's serialized row RMWs amortize far
-    # better in one large op).  The scan then stacks (rows, updates) —
-    # contiguous writes — and the scatter runs once at the end.  Falls
-    # back to in-scan scatters when the stacked update buffer would be
-    # too large (long windows, e.g. 1080p streaming chunks).
+    # ONE deferred scatter instead of per-batch scatters in the scan: the
+    # scan stacks (rows, updates) — contiguous writes — and the scatter
+    # runs once at the end (one large op amortizes per-row read-modify-
+    # writes; GPU cost not measured separately).  Falls back to in-scan
+    # scatters when the stacked update buffer would be too large (long
+    # windows, e.g. 1080p streaming chunks) — a fixed gate sized for the
+    # small device memory of the accelerator this pipeline was first
+    # written for; it picks a slower path with equal results and is safe
+    # on an 80 GB card.  ROADMAP A7 derives it from memory_stats().
     nb = site_batches.shape[0]
     ka = (cfg.agg_k if cfg.agg_k and cfg.agg_k < cfg.npatches
           else cfg.npatches)
@@ -259,12 +259,8 @@ def accumulate(noisy_yuv, basic_yuv, srch_yuv, fflow, bflow, site_batches,
             # the f32 accumulator, so only the per-patch update values round
             # (uniform 0/1 weight-lane entries are exact in bf16)
             upd = upd.astype(jnp.bfloat16)
-        # stack FLATTENED, folded to (8, flat/8): the natural (B, K, ptd+1)
-        # stack relayouts the 295-lane minor dim (pads to 384 in vregs,
-        # traced ~14 GB/s), and a fully-flat (nb, flat) stack tiles the nb
-        # dim in (8, 128) tiles so each iteration writes 1 of 8 sublanes
-        # (read-modify-write, traced ~39 GB/s).  An (8, flat/8) row makes
-        # every per-step dynamic-update-slice cover whole tiles; the final
+        # stack FLATTENED, folded to (8, flat/8), so every per-step
+        # dynamic-update-slice writes whole contiguous rows; the final
         # (-1, ptd+1) reshape stays a free bitcast.
         updf = upd.reshape(-1)
         if updf.shape[0] % 8 == 0:
@@ -283,9 +279,9 @@ def accumulate(noisy_yuv, basic_yuv, srch_yuv, fflow, bflow, site_batches,
         if prof_upto == "stack":
             return (jnp.sum(rows_all)
                     + jnp.sum(upd_all.reshape(-1, cfg.pt * d + 1)[:, -1]))
-        # same global row order as the sequential in-scan scatters, and
-        # XLA's TPU scatter combines duplicate rows in index order, so the
-        # result is bitwise identical to the scan-scatter path
+        # same global row order as the sequential in-scan scatters; XLA:CPU
+        # combines duplicate rows in index order (bitwise equal to the
+        # scan-scatter path there), XLA:GPU with atomics in no fixed order
         acc = make_acc0().at[rows_all.reshape(-1)].add(
             upd_all.reshape(-1, cfg.pt * d + 1).astype(jnp.float32),
             mode="drop")

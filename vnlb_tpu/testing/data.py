@@ -68,7 +68,7 @@ def synthetic_video(t: int, h: int, w: int, seed: int = 0,
 
 def synthetic_video_v2(t: int, h: int, w: int, seed: int = 0,
                        pan: float = 2.0) -> np.ndarray:
-    """Second, structurally different synthetic clip (judge r3 #7).
+    """Second, structurally different synthetic clip.
 
     Every quality number in this repo previously came from ONE generator
     (band-limited texture + small drift).  This one stresses the content

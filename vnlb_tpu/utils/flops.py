@@ -1,11 +1,11 @@
-"""Analytic FLOP accounting for the pipeline phases (round-2 judge item #6).
+"""Analytic FLOP accounting for the pipeline phases.
 
-Counts ALGORITHMIC work (the useful-FLOP yardstick MFU is defined against),
-not implementation work — padding lanes, discarded candidate planes and
-recomputed box sums count as overhead, which is exactly what the MFU number
-is supposed to expose.  v5e-1 peak: ~197 TFLOP/s bf16, ~98 fp32.
+Counts ALGORITHMIC work (the useful-FLOP yardstick), not implementation
+work — padding lanes, discarded candidate planes and recomputed box sums
+count as overhead, which is what a useful-FLOP rate is supposed to expose.
+Device-independent: a rate divides these counts by a measured time.
 
-Phases mirror scripts/profile_phases.py: search (patch-distance MACs over
+Phases: search (patch-distance MACs over
 all (site, candidate) pairs, every needle level), bayes (covariance +
 polynomial matmul chain + application), agg (scatter adds + dense fold
 adds).  Gather is bandwidth, not FLOPs — reported as bytes.
@@ -14,10 +14,6 @@ adds).  Gather is bandwidth, not FLOPs — reported as bytes.
 from __future__ import annotations
 
 from ..config import StageConfig
-
-V5E_BF16_TFLOPS = 197.0
-V5E_FP32_TFLOPS = 98.0
-
 
 def _econ_matmuls(cfg: StageConfig, k: int, p: int):
     """(n_pp_matmuls, n_kp_matmuls) of the econ poly evaluator."""
